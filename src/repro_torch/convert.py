@@ -1,0 +1,58 @@
+"""Carry a computation of the reference package across to the port.
+
+A stencil system's "weights" are its program and its grids: the JAX
+package writes a program as canonical JSON (``Program.serialize()``) and
+holds grids as arrays.  :func:`from_reference` reads both into the port's
+:class:`repro_torch.ir.Program` and tensors on a device;
+:func:`stencil_from_reference` turns an ``(offsets, weights)`` operator
+into the exact values the kernels multiply with.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from . import ir, resolve_device
+
+__all__ = ["from_reference", "stencil_from_reference"]
+
+
+def from_reference(program_json, arrays: Mapping[str, np.ndarray],
+                   device=None):
+    """The port's ``(Program, {name: tensor})`` for a reference program.
+
+    ``program_json`` is the reference's serialized program
+    (``Program.serialize()``); ``arrays`` maps each of the program's input
+    names to a numpy array (bf16 grids arrive as float32 arrays and a
+    ``dtype`` change is the caller's).  The program is verified on the grids'
+    shape; a missing input raises ``KeyError``."""
+    prog = ir.Program.from_json(program_json)
+    missing = [n for n in prog.inputs() if n not in arrays]
+    if missing:
+        raise KeyError(f"program inputs missing from arrays: {missing}")
+    dev = resolve_device(device)
+    tensors = {
+        name: torch.as_tensor(np.ascontiguousarray(arrays[name])).to(dev)
+        for name in prog.inputs()
+    }
+    shapes = {tuple(t.shape) for t in tensors.values()}
+    if len(shapes) != 1:
+        raise ValueError(f"program inputs differ in shape: {sorted(shapes)}")
+    ir.verify(prog, next(iter(shapes)))
+    return prog, tensors
+
+
+def stencil_from_reference(offsets, weights):
+    """``(offsets (s, d) int64, weights (s,) float32)``: the weights cast to
+    ``np.float32`` one by one, exactly as the reference's kernel does
+    before its multiply-adds (``np.float32(w) * x``)."""
+    offs = np.asarray(offsets, dtype=np.int64)
+    if offs.ndim == 1:
+        offs = offs.reshape(1, -1)
+    wts = np.array([np.float32(w) for w in weights], dtype=np.float32)
+    if len(wts) != len(offs):
+        raise ValueError(f"{len(offs)} offsets but {len(wts)} weights")
+    return offs, wts

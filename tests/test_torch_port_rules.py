@@ -1,0 +1,109 @@
+"""Rules the PyTorch port keeps.
+
+* Nothing under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
+  ``jax`` or the JAX package ``repro`` (``repro_torch`` is the port).
+* An entry point called without ``device="cpu"`` on a machine without
+  CUDA raises; it never runs on the CPU quietly.
+* ``python3 chip_smoke.py`` runs from the repository root with no
+  ``PYTHONPATH``; without CUDA it exits non-zero with its no-CUDA message
+  and prints no result.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"
+]
+
+
+def _imported_modules(path: Path) -> list[str]:
+    tree = ast.parse(path.read_text(), filename=str(path))
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module or "")
+    return names
+
+
+@pytest.mark.parametrize(
+    "path", PORT_FILES, ids=[str(p.relative_to(ROOT)) for p in PORT_FILES]
+)
+def test_port_imports_neither_jax_nor_the_jax_package(path):
+    bad = [
+        m for m in _imported_modules(path)
+        if m.split(".")[0] in ("jax", "jaxlib", "repro")
+    ]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_the_scan_sees_the_port():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert "src/repro_torch/kernels/stencil.py" in names
+    assert "chip_smoke.py" in names
+    assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 2
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA: the default device is the card")
+
+
+@pytest.mark.parametrize("entry", [
+    "stencil_pallas", "stencil_iterate", "multi_stencil_pallas",
+    "run_program", "from_reference",
+])
+def test_entry_points_default_to_the_card(entry):
+    _no_cuda()
+    from repro_torch import convert, ir
+    from repro_torch.core.cache_fitting import star_stencil
+    from repro_torch.kernels import stencil as st
+
+    x = np.zeros((12, 13, 14), np.float32)
+    offs, w = star_stencil(3, 1), [0.5] * 7
+    kw = dict(tile=(4, 8, 8), sweep_axis=0)
+    calls = {
+        "stencil_pallas": lambda: st.stencil_pallas(x, offs, w, **kw),
+        "stencil_iterate": lambda: st.stencil_iterate(x, offs, w, 2, **kw),
+        "multi_stencil_pallas": lambda: st.multi_stencil_pallas(
+            [x, x], [offs, offs], [w, w], **kw),
+        "run_program": lambda: ir.run_program(
+            ir.stencil_program(offs, w, time_steps=2), x, **kw),
+        "from_reference": lambda: convert.from_reference(
+            ir.stencil_program(offs, w).serialize(), {"u": x}),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_explicit_cuda_without_cuda_raises():
+    _no_cuda()
+    from repro_torch import resolve_device
+
+    with pytest.raises(RuntimeError, match="is_available"):
+        resolve_device("cuda")
+    assert resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_runs_without_pythonpath_and_refuses_without_cuda():
+    _no_cuda()
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode != 0
+    assert "no CUDA device" in proc.stderr
+    assert "ModuleNotFoundError" not in proc.stderr
+    assert '"ok"' not in proc.stdout
