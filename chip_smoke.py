@@ -18,15 +18,28 @@ through its public entry points at full size:
   ring and trapezoid frontiers;
 * ``chain_ragged``      — a two-stage damped-Jacobi program on a ragged
   250×253×258 grid, given as program JSON through
-  ``convert.from_reference`` and ``ir.run_program``.
+  ``convert.from_reference`` and ``ir.run_program``;
+* ``bc_neumann_apply_512`` — the 13-point star once under a neumann
+  boundary at 512³ f32 (a one-stage chain launch with correction taps);
+* ``chain_periodic_T3_512`` — three periodic applications at 512³ f32
+  (host wrap fill, widened masks), ring and trapezoid;
+* ``chain_mixed_bc_256`` — dirichlet(0.5) damped Jacobi on the 7-point
+  star, then robin(0.7, 0.3) on the 27-point box, at 256³ f32;
+* ``chain_dtypes_512``  — ``stencil_iterate(T=3, dtypes=["bfloat16",
+  "bfloat16", "float32"])`` at 512³ f32;
+* ``chain_int8_512``    — three reflect applications at 512³ f32 with
+  stages 0 and 1 quantized to int8 (scale 0.02, zero point 3), plus the
+  same chain split after stage 1 into two launches that hand int8 codes
+  over (``in_quant``).
 
 Each phase zeroes the kernels' launch counters, drives the path, reads the
 counters (each kernel of the path must have launched), checks the output
-(shape, finite, against the plain PyTorch oracle), holds each kernel
-against its plain version on the same padded inputs (bit for bit), and
-times kernel, plain version and — where one PyTorch call computes the same
-function — that call (``F.conv3d`` with TF32 off, a yardstick the port
-never calls) with CUDA events.  It prints one JSON line per phase, a
+(shape, finite, against the plain PyTorch oracle ``kernels/ref.py`` within
+the stated band), holds each kernel against its plain version on the same
+padded inputs (bit for bit) and ring against trapezoid frontiers (bit for
+bit), and times kernel, plain version and — where one PyTorch call
+computes the same function — that call (``F.conv3d`` or ``nn.Conv3d``
+with TF32 off, a yardstick the port never calls) with CUDA events.  It prints one JSON line per phase, a
 ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing a result.
@@ -121,22 +134,28 @@ def main() -> None:
         return statistics.median(times)
 
     def bits_equal(a, b) -> bool:
+        if a.shape != b.shape or a.dtype != b.dtype:
+            return False
+        if a.element_size() == 1:
+            return bool(torch.equal(a, b))
         view = torch.int16 if a.element_size() == 2 else torch.int32
-        return a.shape == b.shape and bool(
+        return bool(
             torch.equal(a.contiguous().view(view), b.contiguous().view(view))
         )
 
     def max_err(a, b) -> float:
         return float((a.float() - b.float()).abs().max())
 
-    def bound(shape, itemsize, n_in, stage_taps) -> dict:
+    def bound(shape, in_itemsize, out_itemsize, n_in, stage_taps) -> dict:
         """The least time for the function on this card: the ``n_in``
-        unpadded inputs read once and the output written once at the HBM
-        rate, or 2 flops per tap per grid point per stage at the f32 rate,
-        whichever is longer.  Zero halos, tile round-up and recomputed
-        overlap are the port's own work and are not counted."""
+        unpadded inputs read once (``in_itemsize`` bytes an element) and
+        the output written once (``out_itemsize``) at the HBM rate, or 2
+        flops per tap per grid point per stage at the f32 rate, whichever
+        is longer.  Zero halos, tile round-up, recomputed overlap and
+        boundary correction taps are the port's own work and are not
+        counted."""
         n = prod(shape)
-        nbytes = (n_in + 1) * n * itemsize
+        nbytes = n_in * n * in_itemsize + n * out_itemsize
         flops = 2 * sum(stage_taps) * n
         tb = nbytes / HBM_BYTES_PER_S * 1e3
         tf = flops / F32_FLOPS_PER_S * 1e3
@@ -212,7 +231,7 @@ def main() -> None:
         "library_max_abs_diff": lib_err, "ms": kernel_ms, "call_ms": call_ms,
         "copy_ms": copy_ms, "copy_bytes": 2 * ins[0].numel() * 4,
         "plain_ms": plain_ms, "library_ms": lib_ms,
-        **bound(shape, 4, 1, [len(w13)]), "bytes_moved": moved,
+        **bound(shape, 4, 4, 1, [len(w13)]), "bytes_moved": moved,
         "card": card_line,
     }
     emit(phase)
@@ -275,7 +294,8 @@ def main() -> None:
         "exact_vs_plain": exact, "max_abs_err": err,
         "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": lib_ms,
-        **bound(shape, 2, 2, [len(w13) + len(w7)]), "bytes_moved": moved,
+        **bound(shape, 2, 2, 2, [len(w13) + len(w7)]),
+        "bytes_moved": moved,
         "card": card_line,
     }
     emit(phase)
@@ -355,7 +375,7 @@ def main() -> None:
         "plain_ms": plain_ms, "call_ms": call_ms,
         "unfused_call_ms": unfused_ms, "unfused_tile": [8, 16, 32],
         "library_ms": None,
-        **bound(shape, 4, 1, [len(s_.weights) for s_ in stages]),
+        **bound(shape, 4, 4, 1, [len(s_.weights) for s_ in stages]),
         "bytes_moved": moved, "flops_computed": computed, "card": card_line,
     }
     emit(phase)
@@ -418,15 +438,305 @@ def main() -> None:
         "exact_vs_plain": exact, "max_abs_err": err,
         "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": None,
-        **bound(shape, 4, 1, [len(s_.weights) for s_ in stages]),
+        **bound(shape, 4, 4, 1, [len(s_.weights) for s_ in stages]),
         "bytes_moved": moved, "flops_computed": computed, "card": card_line,
     }
     emit(phase)
     summary["sweep_chain"].append(phase)
+    del arrays, out, oracle, ins, k_out, p_out, cargs
+    torch.cuda.empty_cache()
+
+    # -- boundary conditions, stage dtypes and int8 frontiers ------------------
+    # Each phase runs a program through ir.run_program (or stencil_iterate)
+    # under both frontier layouts, then the kernel and its plain version on
+    # the launch buffers the host side builds for the same chain.
+
+    def oracle_band(stages_sp, bcs, dtypes, quants, maxima):
+        """The documented band of tests/test_program_fuzz.py::_band: f32
+        summation-order noise, plus per bf16 stage one bf16 ulp of its
+        maximum and per int8 stage one code, each times the downstream
+        stages' L1 weight norms (robin: times max(1, |alpha|))."""
+        amps = []
+        for (_, wts), bc in zip(stages_sp, bcs):
+            l1 = float(np.sum(np.abs(wts)))
+            if bc is not None and bc[0] == "robin":
+                l1 *= max(1.0, abs(float(bc[1][0])))
+            amps.append(l1)
+        tol = 1e-4 * (1.0 + max(maxima))
+        for j in range(len(stages_sp)):
+            amp = prod(amps[j + 1:])
+            if quants[j] is not None:
+                tol += float(quants[j][0]) * amp
+            elif dtypes[j] == "bfloat16":
+                tol += maxima[j] * 2.0 ** -7 * amp
+        return tol
+
+    def iterated_oracle(u, stages_sp, bcs, dtypes, quants):
+        """ref.stencil_ref stage by stage with the storage round trips the
+        reference fuzzer's _oracle applies; also each stage's max |x|."""
+        v = u.float()
+        maxima = []
+        for (offs_j, wts_j), bc, dt, qn in zip(stages_sp, bcs, dtypes,
+                                               quants):
+            kind, val = ("zero", 0.0) if bc is None else bc
+            v = ref.stencil_ref(v, np.asarray(offs_j), wts_j, boundary=kind,
+                                value=val)
+            if qn is not None:
+                v = ref.dequantize_ref(ref.quantize_ref(v, *qn), *qn)
+            elif dt == "bfloat16":
+                v = v.to(torch.bfloat16).float()
+            maxima.append(float(v.abs().max()))
+        return v, maxima
+
+    def chain_phase(name, u, tile, main_call, stages_sp, bcs=None,
+                    dtypes=None, quants=None, library=None, windows=None,
+                    extra=None, without=None):
+        """Drive ``main_call(window_kind)`` (the user's entry point), check
+        it against the iterated oracle within its band and ring against
+        trapezoid, then the kernel against its plain version on the launch
+        buffers, and time kernel, plain version, call and library call.
+        ``without`` names what to leave out of one more timing of the
+        kernel on the same grid (``"boundary"`` or ``"quantization"``):
+        what the left-out part costs."""
+        T = len(stages_sp)
+        bcs = bcs or (None,) * T
+        dtypes = dtypes or (None,) * T
+        quants = quants or (None,) * T
+        windows = windows or ("ring", "trapezoid")
+        shape = tuple(u.shape)
+        outs, launched = {}, {}
+        for wk in windows:
+            reset()
+            outs[wk] = main_call(wk)
+            torch.cuda.synchronize()
+            launched[wk] = counts()
+            assert launched[wk]["sweep_chain"] >= 1, (name, launched)
+        out = outs[windows[0]]
+        ring_eq_trap = all(bits_equal(outs[wk], out) for wk in windows)
+        assert ring_eq_trap, name
+        assert out.shape == shape and bool(torch.isfinite(out.float()).all())
+        oracle, maxima = iterated_oracle(u, stages_sp, bcs, dtypes, quants)
+        band = oracle_band(stages_sp, bcs, dtypes, quants, maxima)
+        oracle_err = max_err(out, oracle)
+        assert oracle_err <= band, (name, oracle_err, band)
+        del oracle, outs
+        torch.cuda.empty_cache()
+        stages_w = tuple(spec(o, w) for o, w in stages_sp)
+        eff = tuple(dt or "float32" for dt in dtypes)
+        ins, _, _, stages, lo_w, hi_w = st._launch_inputs(
+            [u], stages_w[:1], tile, stages_w,
+            bcs_w=bcs if any(b is not None for b in bcs) else None,
+            dtypes_w=eff if any(dt != "float32" for dt in eff) else None,
+            quants_w=quants if any(q is not None for q in quants) else None,
+        )
+        p_out = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, 0,
+                                        True, windows[0], shape)
+        times, exact, err = {}, True, 0.0
+        for wk in windows:
+            cargs = (ins[0], stages, lo_w, hi_w, tile, 0, True, wk, shape)
+            k_out = sweep.sweep_chain(*cargs)
+            torch.cuda.synchronize()
+            exact &= bits_equal(k_out, p_out)
+            err = max(err, max_err(k_out, p_out))
+            times[wk] = time_ms(lambda: sweep.sweep_chain(*cargs))
+            del k_out
+        assert exact, (name, err)
+        plain_ms = time_ms(lambda: sweep.sweep_chain_plain(
+            ins[0], stages, lo_w, hi_w, tile, 0, True, windows[0], shape),
+            reps=3, warmup=1)
+        without_ms = None
+        if without is not None:
+            field = {"boundary": "bc", "quantization": "quant"}[without]
+            bare = tuple(s_._replace(**{field: None}) for s_ in stages)
+            if without == "quantization":
+                bare = tuple(s_._replace(dtype=None) for s_ in bare)
+            without_ms = time_ms(lambda: sweep.sweep_chain(
+                ins[0], bare, lo_w, hi_w, tile, 0, True, windows[0], shape))
+        call_ms = time_ms(lambda: main_call(windows[0]), reps=5)
+        lib_ms = lib_diff = None
+        if library is not None:
+            lib_fn, lib_check = library
+            lib_ms = time_ms(lib_fn)
+            lib_diff = lib_check()
+        pts = sweep.chain_points(stages, tile, 0, windows[0], p_out.shape)
+        computed = sum(2 * len(s_.weights) * n for s_, n in zip(stages, pts))
+        phase = {
+            "phase": name, "shape": list(shape), "tile": list(tile),
+            "sweep_axis": 0, "stages": T,
+            "boundaries": [list(b) if b else None for b in bcs],
+            "dtypes": list(eff), "quants": [list(q) if q else None
+                                            for q in quants],
+            "launches": launched, "ring_equals_trapezoid": ring_eq_trap,
+            "exact_vs_plain": exact, "max_abs_err": err,
+            "oracle_max_abs_err": oracle_err, "oracle_band": band,
+            "ms": times[windows[0]], "ms_by_window": times,
+            "plain_ms": plain_ms, "call_ms": call_ms, "library_ms": lib_ms,
+            "library_max_abs_diff": lib_diff,
+            **({f"ms_without_{without}": without_ms} if without else {}),
+            **bound(shape, u.element_size(), p_out.element_size(), 1,
+                    [len(s_.weights) for s_ in stages]),
+            "bytes_moved": ins[0].numel() * ins[0].element_size()
+            + p_out.numel() * p_out.element_size(),
+            "flops_computed": computed, "card": card_line,
+        }
+        phase.update(extra or {})
+        del ins, p_out
+        torch.cuda.empty_cache()
+        return phase
+
+    def conv_module(offsets, weights, r, mode):
+        """nn.Conv3d with a padding mode: the one PyTorch call that applies
+        this operator once under that boundary (TF32 off)."""
+        conv = torch.nn.Conv3d(1, 1, 2 * r + 1, padding=r, padding_mode=mode,
+                               bias=False).to(dev)
+        with torch.no_grad():
+            conv.weight.copy_(dense_kernel(offsets, weights, r,
+                                           torch.float32)[None, None])
+        return conv
+
+    def run_prog(prog, u, tile):
+        return lambda wk: ir.run_program(prog, u, tile=tile, sweep_axis=0,
+                                         window_kind=wk)
+
+    big = (512, 512, 512)
+
+    # bc_neumann_apply_512: one application under neumann, T = 1 chain form.
+    gen.manual_seed(4)
+    u = torch.randn(big, generator=gen, device=dev)
+    bcs = (("neumann", 0.0),)
+    prog = ir.chain_program([(offs13, w13)], 3, boundary="neumann")
+    conv = conv_module(offs13, w13, 2, "replicate")
+    with torch.no_grad():
+        lib = (lambda: conv(u[None, None]),
+               lambda: max_err(conv(u[None, None])[0, 0],
+                               ir.run_program(prog, u, tile=(8, 16, 32),
+                                              sweep_axis=0)))
+        phase = chain_phase("bc_neumann_apply_512", u, (8, 16, 32),
+                            run_prog(prog, u, (8, 16, 32)),
+                            [(offs13, w13)], bcs=bcs, library=lib,
+                            windows=("ring",), without="boundary")
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+
+    # chain_periodic_T3_512: three periodic applications.
+    prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="periodic")
+    conv = conv_module(offs13, w13, 2, "circular")
+    with torch.no_grad():
+        lib = (lambda: conv(u[None, None]),
+               lambda: max_err(conv(u[None, None])[0, 0],
+                               ref.stencil_ref(u, offs13, w13, "periodic")))
+        phase = chain_phase("chain_periodic_T3_512", u, (4, 16, 32),
+                            run_prog(prog, u, (4, 16, 32)),
+                            [(offs13, w13)] * 3,
+                            bcs=(("periodic", 0.0),) * 3, library=lib,
+                            extra={"library_covers": "one of 3 applications"})
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del conv, lib
+    torch.cuda.empty_cache()
+
+    # chain_dtypes_512: bf16 frontiers, f32 result, through stencil_iterate.
+    dts = ("bfloat16", "bfloat16", "float32")
+    phase = chain_phase(
+        "chain_dtypes_512", u, (4, 16, 32),
+        lambda wk: st.stencil_iterate(u, offs13, w13, 3, tile=(4, 16, 32),
+                                      sweep_axis=0, window_kind=wk,
+                                      dtypes=list(dts)),
+        [(offs13, w13)] * 3, dtypes=dts)
+    assert phase["dtypes"] == list(dts)
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+
+    # chain_int8_512: stages 0 and 1 quantized, reflect boundary.  The grid
+    # amplitude puts the stage values on the int8 grid of scale 0.02
+    # (|x| up to ~2.5) rather than saturating it.
+    u8 = u * 0.01
+    del u
+    torch.cuda.empty_cache()
+    q = (0.02, 3)
+    quants = (q, q, None)
+    prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="reflect",
+                            quants=list(quants))
+    lowered = ir.lower(prog, big)
+    assert lowered.dtypes == ("int8", "int8", None), lowered.dtypes
+    bcs = (("reflect", 0.0),) * 3
+    # The same chain in two launches: stages 0-1 store int8 codes, stage 2
+    # reads them back through in_quant.
+    sw = (spec(offs13, w13),) * 3
+    tile = (4, 16, 32)
+
+    def split():
+        codes = st._stencil_call((u8,), sw[:1], tile, 0, True,
+                                 stages_w=sw[:2], bcs_w=bcs[:2],
+                                 dtypes_w=("int8", "int8"),
+                                 quants_w=(q, q))
+        return codes, st._stencil_call((codes,), sw[2:], tile, 0, True,
+                                       stages_w=sw[2:], bcs_w=bcs[2:],
+                                       dtypes_w=("float32",), in_quant=q)
+
+    reset()
+    codes, split_out = split()
+    torch.cuda.synchronize()
+    split_launched = counts()
+    assert split_launched["sweep_chain"] == 2, split_launched
+    assert codes.dtype == torch.int8 and split_out.dtype == torch.float32
+    fused = ir.run_program(prog, u8, tile=tile, sweep_axis=0)
+    split_equals_fused = bits_equal(split_out, fused)
+    assert split_equals_fused
+    del fused, split_out
+    # The in_quant launch alone: int8 codes in, f32 out.
+    ins, _, _, stages, lo_w, hi_w = st._launch_inputs(
+        [codes], sw[2:], tile, sw[2:], bcs_w=bcs[2:],
+        dtypes_w=("float32",), in_quant=q)
+    cargs = (ins[0], stages, lo_w, hi_w, tile, 0, True, "ring", big, None, q)
+    k_out = sweep.sweep_chain(*cargs)
+    p_out = sweep.sweep_chain_plain(*cargs)
+    torch.cuda.synchronize()
+    iq_exact = bits_equal(k_out, p_out)
+    assert iq_exact, max_err(k_out, p_out)
+    in_quant_launch = {
+        "launches": split_launched, "split_equals_fused": split_equals_fused,
+        "exact_vs_plain": iq_exact, "max_abs_err": max_err(k_out, p_out),
+        "ms": time_ms(lambda: sweep.sweep_chain(*cargs)),
+        "plain_ms": time_ms(lambda: sweep.sweep_chain_plain(*cargs), reps=3,
+                            warmup=1),
+        **bound(big, 1, 4, 1, [len(w13)]),
+    }
+    del ins, k_out, p_out, cargs, codes
+    torch.cuda.empty_cache()
+    phase = chain_phase("chain_int8_512", u8, tile,
+                        run_prog(prog, u8, tile), [(offs13, w13)] * 3,
+                        bcs=bcs, dtypes=("int8", "int8", None),
+                        quants=quants,
+                        extra={"in_quant_launch": in_quant_launch,
+                               "grid_scale": 0.01},
+                        without="quantization")
+    phase["launches"]["split"] = split_launched
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del u8
+    torch.cuda.empty_cache()
+
+    # chain_mixed_bc_256: per-stage boundaries, box corners, robin.
+    gen.manual_seed(5)
+    u = torch.randn((256, 256, 256), generator=gen, device=dev)
+    box27 = np.array([(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1)
+                      for k in (-1, 0, 1)])
+    w_box = [0.5 if not any(o) else 0.5 / 26 for o in box27.tolist()]
+    w_jac = [1.0 / 3.0] + [1.0 / 9.0] * 6  # omega = 2/3 on the 7-point star
+    mixed = [(offs7, w_jac), (box27, w_box)]
+    bcs = (("dirichlet", 0.5), ("robin", (0.7, 0.3)))
+    prog = ir.chain_program(mixed, 3, boundary=list(bcs))
+    phase = chain_phase("chain_mixed_bc_256", u, (8, 16, 32),
+                        run_prog(prog, u, (8, 16, 32)), mixed, bcs=bcs)
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del u
+    torch.cuda.empty_cache()
 
     # -- summary ---------------------------------------------------------------
     rows = []
-    parts = {"sweep_apply": "B1+B2", "sweep_chain": "B1+B3+B4"}
+    parts = {"sweep_apply": "B1+B2", "sweep_chain": "B1+B3+B4+B5+B6"}
     for name, phases in summary.items():
         head = phases[0]
 
@@ -434,7 +744,7 @@ def main() -> None:
             ln = ph["launches"]
             if name in ln:
                 return ln[name]
-            return sum(v[name] for v in ln.values())
+            return sum(v[name] for v in ln.values() if name in v)
 
         rows.append({
             "name": name, "route": "cuda",

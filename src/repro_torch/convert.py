@@ -25,7 +25,8 @@ def from_reference(program_json, arrays: Mapping[str, np.ndarray],
     """The port's ``(Program, {name: tensor})`` for a reference program.
 
     ``program_json`` is the reference's serialized program
-    (``Program.serialize()``); ``arrays`` maps each of the program's input
+    (``Program.serialize()``, boundary, quantize and dequantize ops and
+    apply dtypes included); ``arrays`` maps each of the program's input
     names to a numpy array (bf16 grids arrive as float32 arrays and a
     ``dtype`` change is the caller's).  The program is verified on the grids'
     shape; a missing input raises ``KeyError``."""

@@ -140,13 +140,15 @@ def sweep_smem_bytes(
 
     Layout (each region rounded up to 16 bytes):
 
-    * one input ring per RHS at the input dtype: the halo'd window's cross
-      extents times ``t_s + h_s`` sweep rows, plus ``t_s`` rows of landing
-      slab when ``pipelined`` (the next slab arrives by ``cp.async`` while
-      the current step computes);
+    * one input ring per RHS at the input dtype (``dtype_bytes``: 4 for
+      f32, 2 for bf16, 1 for the int8 codes of a quantized input): the
+      halo'd window's cross extents times ``t_s + h_s`` sweep rows, plus
+      ``t_s`` rows of landing slab when ``pipelined`` (the next slab
+      arrives while the current step computes);
     * for a chain (``stage_halos`` given, T >= 2), one f32 frontier per
-      intermediate stage: stage j's cross extents ``tile + suffix halo``
-      times :func:`frontier_depth` rows.
+      intermediate stage, whatever the stage's storage dtype (it holds the
+      value already rounded through that dtype): stage j's cross extents
+      ``tile + suffix halo`` times :func:`frontier_depth` rows.
 
     ``pipelined`` is the *effective* flag (the caller has already dropped
     it for a single sweep step or a zero sweep halo).  Raises

@@ -22,6 +22,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -30,9 +33,16 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
+// int8 holds quantized codes: the argument is already an integral value in
+// [-128, 127] (quantize_code), so the conversion is exact.
+template <>
+__device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  return static_cast<int8_t>(__float2int_rn(x));
+}
 
 // One element from global to shared memory: cp.async for 4-byte types,
-// an ordinary load and store otherwise (cp.async has no 2-byte granule).
+// an ordinary load and store for bf16 and int8 (cp.async has no 1- or
+// 2-byte granule).
 template <typename T>
 __device__ __forceinline__ void copy_elem(T* dst, const T* src) {
   if constexpr (sizeof(T) == 4) {

@@ -16,9 +16,8 @@ shared predecessor merges into a single stage with a widened offset
 table — ``(1-ω)·u + ω·K·u`` is *the same* weighted sum either way.
 
 Boundary annotations survive lowering as per-stage ``(kind, value)``
-entries; the kernel turns them into in-kernel correction taps
-(a later slice of :mod:`repro_torch.kernels.stencil`), so no host-side
-pad materializes.
+entries; the chain kernel turns them into in-kernel correction taps
+(:mod:`repro_torch.kernels.sweep`), so no host-side pad materializes.
 """
 
 from __future__ import annotations

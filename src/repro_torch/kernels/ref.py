@@ -100,8 +100,11 @@ def stencil_ref(
 
 def quantize_ref(x: torch.Tensor, scale: float, zero_point: int = 0):
     """Affine int8 quantization ``clip(round(x / scale) + zp, -128, 127)``
-    with IEEE half-even rounding (``torch.round``)."""
-    q = torch.round(x.to(torch.float32) / np.float32(scale).item())
+    with IEEE half-even rounding (``torch.round``).  The divisor is a
+    tensor, so that a CUDA tensor gets the IEEE quotient too (a Python
+    scalar divisor becomes a multiply by its reciprocal there)."""
+    s = torch.tensor(np.float32(scale).item(), device=x.device)
+    q = torch.round(x.to(torch.float32) / s)
     q = torch.clamp(q + float(int(zero_point)), -128.0, 127.0)
     return q.to(torch.int8)
 

@@ -3,16 +3,20 @@
 ``stencil_pallas`` / ``stencil_iterate`` / ``ir.run_program`` →
 :func:`multi_stencil_pallas` → ``ir.lower`` → :func:`_stencil_call` →
 :func:`embed_inputs` → :func:`_padded_call` → the two sweep kernels of
-:mod:`repro_torch.kernels.sweep`: ``sweep_apply`` for one application over
-p RHS arrays, ``sweep_chain`` for a fused chain of T >= 2 stages.
+:mod:`repro_torch.kernels.sweep`: ``sweep_apply`` for one zero-fill
+application over p RHS arrays, ``sweep_chain`` for a fused chain of T >= 2
+stages and for every launch, T = 1 included, that carries a boundary
+condition, a stage dtype other than the input's or a quantized stage.
 
-The frontends keep the JAX package's names and signatures for what this
-slice supports — an explicit ``tile=`` and ``sweep_axis=``, ``pipelined``,
-``time_steps``, ``stages``, ``program`` and ``window_kind`` — at zero fill
-with every stage stored at the input dtype (f32 or bf16).  Every other
-argument raises ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-brings it.  Every spelling lowers through the port's stencil-program IR,
-as the reference does, so the launches equal the reference's.
+The frontends keep the JAX package's names and signatures for what the
+port supports — an explicit ``tile=`` and ``sweep_axis=``, ``pipelined``,
+``time_steps``, ``stages``, ``program``, ``window_kind`` and ``dtypes`` —
+with the whole boundary menu (dirichlet, neumann, reflect, robin,
+periodic; per stage), f32/bf16 stage storage and int8-quantized stages.
+The planner, tune, trace and sharding arguments raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+Every spelling lowers through the port's stencil-program IR, as the
+reference does, so the launches equal the reference's.
 
 The entry points run on the card: ``device=None`` means ``"cuda"``, and
 ``device="cpu"`` runs each kernel's plain PyTorch version (the tests).
@@ -48,9 +52,6 @@ def _later(what: str, item: str) -> NotImplementedError:
 
 
 _PLANNER = "item 8 (Hopper cost model and planner)"
-_BOUNDARY = "item 4 (boundary correction taps B5 and periodic wrap)"
-_DTYPES = "item 5 (per-stage storage dtypes)"
-_QUANT = "item 6 (int8-quantized frontiers B6)"
 _TUNE = "item 9 (measured tune loop)"
 _OBS = "item 10 (telemetry)"
 _SHARD = "item 11 (column sharding)"
@@ -62,8 +63,11 @@ class _Stage(NamedTuple):
     ``lo``/``hi`` are this stage's own per-dim halo; ``suffix_lo``/
     ``suffix_hi`` the per-dim sums over the *later* stages; ``ext`` the
     stage's computed extent ``tile + suffix_lo + suffix_hi`` (the final
-    stage's ``ext`` is the bare tile).  The reference's ``bc``, ``dtype``
-    and ``quant`` fields come with the slices that use them."""
+    stage's ``ext`` is the bare tile).  ``bc`` is the stage *input*'s
+    boundary condition (``None`` = zero fill, else a lowered ``(kind,
+    value)``), ``dtype`` the stage output's storage dtype name (``None`` =
+    the launch input's) and ``quant`` its affine int8 ``(scale,
+    zero_point)`` (``None`` = unquantized)."""
 
     offsets: object                 # (s, d) int array
     weights: tuple
@@ -72,16 +76,32 @@ class _Stage(NamedTuple):
     suffix_lo: tuple
     suffix_hi: tuple
     ext: tuple
+    bc: tuple | None = None
+    dtype: str | None = None
+    quant: tuple | None = None
 
 
-def _launch_geometry(offsets_w, stages_w, tile):
+def _per_stage(values, T, what):
+    vals = tuple(values) if values is not None else (None,) * T
+    if len(vals) != T:
+        raise ValueError(f"{len(vals)} {what} for {T} stages")
+    return vals
+
+
+def _launch_geometry(offsets_w, stages_w, tile, bcs_w=None, dtypes_w=None,
+                     quants_w=None):
     """Static launch geometry: per-RHS offset/weight arrays, the per-stage
     chain (``None`` = single application), and the window cone
-    ``lo_w``/``hi_w`` — the reference's ``_launch_geometry`` at zero fill
-    and the input dtype."""
+    ``lo_w``/``hi_w`` — the reference's ``_launch_geometry``.  ``bcs_w``,
+    ``dtypes_w`` and ``quants_w`` attach each stage's lowered boundary,
+    output dtype name and int8 quantization (``None`` entries: zero fill,
+    the input's dtype, unquantized)."""
     d = len(tile)
     if stages_w is not None:
         T = len(stages_w)
+        st_bcs = _per_stage(bcs_w, T, "boundary conditions")
+        st_dts = _per_stage(dtypes_w, T, "dtypes")
+        st_qns = _per_stage(quants_w, T, "quantizations")
         st_offs = [np.asarray(s[0], dtype=np.int64).reshape(-1, d)
                    for s in stages_w]
         st_wts = [tuple(float(w) for w in s[1]) for s in stages_w]
@@ -104,6 +124,9 @@ def _launch_geometry(offsets_w, stages_w, tile):
                 ext=tuple(
                     t + l + h for t, l, h in zip(tile, sfx_lo, sfx_hi)
                 ),
+                bc=st_bcs[j],
+                dtype=st_dts[j],
+                quant=st_qns[j],
             ))
         stages = tuple(stages)
         offsets = [st_offs[0]]
@@ -120,76 +143,127 @@ def _launch_geometry(offsets_w, stages_w, tile):
 
 
 def _padded_call(ins, dom, offsets, weights, stages, lo_w, hi_w, tile,
-                 sweep, pipelined, n_true, window_kind="ring"):
+                 sweep, pipelined, n_true, window_kind="ring",
+                 in_quant=None):
     """Run a sweep kernel over already-padded buffers and return the
-    *padded* result (``∏ ntiles_i · tile_i`` per dim, no trim).
+    *padded* result (``∏ ntiles_i · tile_i`` per dim, no trim), at the
+    last stage's dtype.
 
     ``ins`` carry the window halo on every dim (``lo_w_i + k_i·tile_i +
     hi_w_i``); ``dom`` is the ``(d,)`` true-grid coordinate of local
     element 0 (zeros on one card) and ``n_true`` the unpadded grid shape,
-    which keep a chain's intermediate-stage masks global."""
+    which keep a chain's masks and boundary corrections global.
+    ``in_quant`` declares an int8 input's ``(scale, zero_point)``."""
     if stages is None:
         return sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
                            pipelined)
     return sweep_chain(ins[0], stages, lo_w, hi_w, tile, sweep, pipelined,
                        window_kind, n_true=tuple(int(n) for n in n_true),
-                       dom=tuple(int(v) for v in dom))
+                       dom=tuple(int(v) for v in dom), in_quant=in_quant)
 
 
-def embed_inputs(us, pads):
-    """Zero-extend each tensor into its launch buffer: per-dim ``(lo,
-    hi)`` extra extent, content at offset ``lo``, zeros elsewhere — the
-    reference's ``pad_free=False`` form (the pad-free, periodic-wrap and
-    quantized-fill forms come with their slices)."""
+def embed_inputs(us, pads, pad_free=False, wrap=None, fill=0):
+    """Extend each tensor into its launch buffer: per-dim ``(lo, hi)``
+    extra extent, content at offset ``lo``, ``fill`` elsewhere (the int8
+    zero point of a quantized input, so its slack dequantizes to exact
+    zeros).  ``pad_free`` is accepted for the reference's signature: its
+    two spellings build bit-identical buffers.
+
+    ``wrap`` (per-dim ``(lo, hi)`` ghost extents, periodic boundaries)
+    fills each ghost band from the far side of the domain, axis by axis in
+    the reference's order: axis k's copies read the ghost rows of axes < k
+    already filled, which reproduces ``np.pad(mode="wrap")``'s corners.
+    Round-up slack past the high ghost stays at ``fill``."""
+    del pad_free
     bufs = []
     for u in us:
         shape = tuple(int(n) + lo + hi for (lo, hi), n in zip(pads, u.shape))
-        buf = torch.zeros(shape, dtype=u.dtype, device=u.device)
+        buf = torch.full(shape, fill, dtype=u.dtype, device=u.device)
         buf[tuple(slice(lo, lo + int(n)) for (lo, _), n in zip(pads, u.shape))] = u
+        if wrap is not None:
+            d = u.ndim
+            for i, (lo, hi) in enumerate(wrap):
+                n = int(u.shape[i])
+                base = pads[i][0]
+                for dst, src in ((slice(base - lo, base),
+                                  slice(base + n - lo, base + n)),
+                                 (slice(base + n, base + n + hi),
+                                  slice(base, base + hi))):
+                    if dst.start == dst.stop:
+                        continue
+                    di = [slice(None)] * d
+                    si = [slice(None)] * d
+                    di[i], si[i] = dst, src
+                    buf[tuple(di)] = buf[tuple(si)].clone()
         bufs.append(buf)
     return bufs
 
 
-def _launch_inputs(us, offsets_w, tile, stages_w=None):
+def _launch_inputs(us, offsets_w, tile, stages_w=None, bcs_w=None,
+                   dtypes_w=None, quants_w=None, in_quant=None):
     """The padded launch buffers and static geometry of one launch:
     ``(ins, offsets, weights, stages, lo_w, hi_w)``.  Each buffer carries
     the lo halo on the low side and the hi halo plus the round-up to the
-    tile on the high side."""
+    tile on the high side; under periodic wrap the halos hold the far
+    side's values, and an int8 input (``in_quant``) is padded with its
+    zero point."""
     offsets, weights, stages, lo_w, hi_w = _launch_geometry(
-        offsets_w, stages_w, tile
+        offsets_w, stages_w, tile, bcs_w, dtypes_w, quants_w
     )
     pads = [
         (l, h + _round_up(int(n), t) - int(n))
         for l, h, n, t in zip(lo_w, hi_w, us[0].shape, tile)
     ]
-    return embed_inputs(us, pads), offsets, weights, stages, lo_w, hi_w
+    periodic = bcs_w is not None and any(
+        bc is not None and bc[0] == "periodic" for bc in bcs_w
+    )
+    ins = embed_inputs(
+        us, pads,
+        wrap=tuple(zip(lo_w, hi_w)) if periodic else None,
+        fill=int(in_quant[1]) if in_quant is not None else 0,
+    )
+    return ins, offsets, weights, stages, lo_w, hi_w
 
 
 def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
-                  window_kind="ring"):
+                  bcs_w=None, dtypes_w=None, window_kind="ring",
+                  quants_w=None, in_quant=None):
     """us: tuple of p same-shape tensors.  offsets_w: tuple per tensor of
     (offsets_tuple, weights_tuple).  ``stages_w`` (tuple per stage of
     (offsets_tuple, weights_tuple), single RHS only) fuses the whole
-    chain into this one launch."""
+    chain into this one launch.  ``bcs_w`` (per stage, ``None`` or a
+    lowered ``(kind, value)``), ``dtypes_w`` (per stage, ``None`` or a
+    dtype name) and ``quants_w`` (per stage, ``None`` or ``(scale,
+    zero_point)``) condition, store and quantize each stage; ``in_quant``
+    declares the input as int8 codes of that quantization (a quantized
+    hand-off from an earlier launch).  The result has the last stage's
+    dtype."""
     u0 = us[0]
     d = u0.ndim
     tile = tuple(int(t) for t in tile)
     ins, offsets, weights, stages, lo_w, hi_w = _launch_inputs(
-        us, offsets_w, tile, stages_w
+        us, offsets_w, tile, stages_w, bcs_w, dtypes_w, quants_w, in_quant
     )
     out = _padded_call(
         ins, (0,) * d, offsets, weights, stages, lo_w, hi_w, tile, sweep,
         pipelined, tuple(u0.shape), window_kind=window_kind,
+        in_quant=in_quant,
     )
     return out[tuple(slice(0, n) for n in u0.shape)].contiguous()
 
 
 def _dtype_name(dt) -> str:
+    """The canonical name of a dtype spelling — a torch dtype, a name, or
+    a numpy/JAX dtype object — as ``jnp.dtype(dt).name`` gives it; an
+    unknown name raises ``TypeError``."""
     if isinstance(dt, torch.dtype):
         return str(dt).removeprefix("torch.")
-    if isinstance(dt, str):
-        return dt
-    return np.dtype(dt).name
+    if isinstance(dt, str) and dt == "bfloat16":
+        return "bfloat16"
+    try:
+        return np.dtype(dt).name
+    except TypeError:
+        raise TypeError(f"data type {dt!r} not understood") from None
 
 
 def _as_tensors(us, device) -> tuple[torch.Tensor, ...]:
@@ -223,7 +297,8 @@ def stencil_pallas(
     """Single-array weighted stencil, zero boundary fill (matches ref).
 
     ``time_steps=T > 1`` applies the stencil T times in one fused launch
-    (explicit ``tile``).  ``device=None`` runs on the card."""
+    (explicit ``tile``); ``dtypes=`` gives each application's storage
+    dtype.  ``device=None`` runs on the card."""
     return multi_stencil_pallas(
         [u], [offsets], [weights], tile=tile, vmem_budget=vmem_budget,
         sweep_axis=sweep_axis, pipelined=pipelined, plan=plan,
@@ -313,8 +388,11 @@ def multi_stencil_pallas(
     ``program.inputs()`` order.  A chain runs as one fused launch at the
     explicit ``tile``; ``window_kind`` (``"ring"``, the default, or
     ``"trapezoid"``) picks the frontier layout and never changes the
-    result.  ``device=None`` runs on the card, ``device="cpu"`` runs the
-    kernels' plain versions."""
+    result.  ``dtypes=[dt_1, ..., dt_T]`` (single-RHS chains only)
+    declares each stage's output dtype (``None`` = the input's); a program
+    carries its boundaries, dtypes and quantizations on its ops.
+    ``device=None`` runs on the card, ``device="cpu"`` runs the kernels'
+    plain versions."""
     if trace is not None:
         raise _later("trace=", _OBS)
     if tune:
@@ -332,16 +410,15 @@ def multi_stencil_pallas(
         raise ValueError(
             f"window_kind must be 'ring' or 'trapezoid', got {window_kind!r}"
         )
+    if dtypes is not None:
+        dtypes = tuple(
+            _dtype_name(dt) if dt is not None else None for dt in dtypes
+        )
     us = _as_tensors(us, device)
     if len({u.shape for u in us}) != 1:
         raise ValueError("RHS arrays must share a shape")
     d = us[0].ndim
     shape = tuple(int(n) for n in us[0].shape)
-    in_name = _dtype_name(us[0].dtype)
-    if dtypes is not None and any(
-        dt is not None and _dtype_name(dt) != in_name for dt in dtypes
-    ):
-        raise _later("a dtypes= entry other than the input's", _DTYPES)
     # -- build the stencil program -----------------------------------------
     if program is not None:
         if (offsets_list is not None or weights_list is not None
@@ -377,7 +454,7 @@ def multi_stencil_pallas(
                     f"stage has {len(offs)} offsets but {len(tuple(ws))} "
                     "weights"
                 )
-        prog = ir.chain_program(list(stages), d)
+        prog = ir.chain_program(list(stages), d, dtypes=dtypes)
     else:
         T = int(time_steps)
         if T < 1:
@@ -390,8 +467,13 @@ def multi_stencil_pallas(
         if len(us) == 1:
             prog = ir.stencil_program(
                 offsets_list[0], weights_list[0], time_steps=T, d=d,
+                dtypes=dtypes,
             )
         else:
+            if dtypes is not None:
+                raise ValueError(
+                    "dtypes= requires a single-RHS stage chain"
+                )
             prog = ir.rhs_program(offsets_list, weights_list, d=d)
     # -- verify + lower onto the engine's launch form ----------------------
     lowered = ir.lower(prog, shape)
@@ -411,19 +493,32 @@ def multi_stencil_pallas(
                 f"program lowers to a stage chain over one input; got "
                 f"{len(us)} arrays"
             )
-        if lowered.has_bc:
-            raise _later("a non-zero boundary", _BOUNDARY)
-        if any(q is not None for q in lowered.quants):
-            raise _later("a quantized stage", _QUANT)
-        if any(dt is not None and dt != in_name for dt in lowered.dtypes):
-            raise _later("a stage dtype other than the input's", _DTYPES)
-        chain = [static_spec(op) for op in lowered.stages]
-        if len(chain) == 1:
+        chain = tuple(static_spec(op) for op in lowered.stages)
+        T = len(chain)
+        bcs = tuple(lowered.bcs)
+        # Per-stage output dtypes resolved against the chain input, as the
+        # reference resolves ``eff``: a stage at the input dtype is the
+        # same launch as one without a dtype.
+        in_name = _dtype_name(us[0].dtype)
+        eff = tuple(
+            _dtype_name(dt) if dt is not None else in_name
+            for dt in (lowered.dtypes or (None,) * T)
+        )
+        if all(dt == in_name for dt in eff):
+            eff = None
+        quants = tuple(lowered.quants or (None,) * T)
+        has_bc = any(bc is not None for bc in bcs)
+        if T == 1 and not has_bc and eff is None:
             return _stencil_call(us, (chain[0],), tile, sweep_axis,
                                  pipelined)
+        # A chain, or a boundary, mixed-dtype or quantized launch: the
+        # chain form even for one stage (a quantized stage has dtype int8,
+        # so it lands here through ``eff``).
         return _stencil_call(
-            us, (chain[0],), tile, sweep_axis, pipelined,
-            stages_w=tuple(chain), window_kind=window_kind,
+            us, (chain[0],), tile, sweep_axis, pipelined, stages_w=chain,
+            bcs_w=bcs if has_bc else None, dtypes_w=eff,
+            window_kind=window_kind,
+            quants_w=quants if any(q is not None for q in quants) else None,
         )
     # multi-RHS single application: ``us`` arrives in load order; stage p
     # applies to lowered.inputs[p].

@@ -3,8 +3,10 @@
 * :func:`sweep_apply` — ``csrc/sweep_apply.cu``: one application over p
   RHS arrays, ``q = Σ_p Σ_taps w·u_p[x+o]`` (parts B1 + B2 of the
   reference's ``_sweep_kernel``).
-* :func:`sweep_chain` — ``csrc/sweep_chain.cu``: a fused T-stage chain
-  with warm-up and streaming frontiers (parts B1 + B3 + B4).
+* :func:`sweep_chain` — ``csrc/sweep_chain.cu``: a chain of T >= 1
+  stages with warm-up and streaming frontiers, boundary correction taps,
+  per-stage storage dtypes and int8-quantized frontiers (parts B1 + B3 +
+  B4 + B5 + B6).
 
 Both take the *padded* launch buffers the host side builds
 (``lo_w + k·tile + hi_w`` per dim) and return the padded result
@@ -17,6 +19,7 @@ and nothing else.
 from __future__ import annotations
 
 import ctypes
+import itertools
 from math import prod
 from typing import Sequence
 
@@ -42,8 +45,15 @@ __all__ = [
 ]
 
 THREADS = 256  # threads per CTA; the kernels declare __launch_bounds__(256)
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_SCHED = 96  # kMaxSched of sweep_chain.cu
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+_APPLY_DTYPES = (torch.float32, torch.bfloat16)
+# The fixed tables of sweep_chain.cu: kMaxStages, kMaxTaps, kMaxSched and
+# kMaxBc (rows of the correction-term table, a device tensor).
+_MAX_STAGES = 8
+_MAX_TAPS = 160
+_MAX_SCHED = 96
+_MAX_BC = 4096
+_BC_ROW = 12  # int32 per correction term; see _bc_table
 
 
 def _f32(w) -> float:
@@ -62,7 +72,8 @@ def _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep) -> bool:
     return bool(pipelined) and nswp > 1 and (lo_w[sweep] + hi_w[sweep]) > 0
 
 
-def _check(ins: Sequence[torch.Tensor], lo_w, hi_w, tile) -> None:
+def _check(ins: Sequence[torch.Tensor], lo_w, hi_w, tile,
+           dtypes=_APPLY_DTYPES) -> None:
     x0 = ins[0]
     if not 1 <= x0.ndim <= 3 or len(tile) != x0.ndim:
         raise ValueError(
@@ -74,10 +85,9 @@ def _check(ins: Sequence[torch.Tensor], lo_w, hi_w, tile) -> None:
             raise ValueError("RHS buffers must share shape, dtype and device")
         if not x.is_contiguous():
             raise ValueError("sweep kernels take contiguous buffers")
-    if x0.dtype not in _DTYPE_CODE:
-        raise TypeError(
-            f"sweep kernels take float32 or bfloat16, got {x0.dtype}"
-        )
+    if x0.dtype not in dtypes:
+        names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
+        raise TypeError(f"this sweep kernel takes {names}, got {x0.dtype}")
     for n, t in zip(_out_shape(x0, lo_w, hi_w), tile):
         if n <= 0 or n % int(t):
             raise ValueError(
@@ -130,8 +140,8 @@ def _raise_rc(name: str, rc: int) -> None:
         )
     if rc == -2:
         raise RuntimeError(
-            f"{name}: too many RHS, stages, taps or schedule entries for "
-            "the kernel's fixed tables"
+            f"{name}: too many RHS, stages, taps, schedule entries or "
+            "correction terms for the kernel's fixed tables"
         )
     raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
@@ -148,10 +158,11 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_void_p,
     ],
     "sweep_chain_launch": [
-        _P(ctypes.c_longlong), _P(ctypes.c_int), _P(ctypes.c_int),
-        _P(ctypes.c_int), _P(ctypes.c_float), _P(ctypes.c_int),
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_void_p,
+        _P(ctypes.c_longlong), _P(ctypes.c_int), _P(ctypes.c_float),
+        _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_float),
+        _P(ctypes.c_int), ctypes.c_int, ctypes.c_int, _P(ctypes.c_int),
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_void_p,
     ],
 }
 
@@ -305,22 +316,190 @@ def chain_schedule(stages, tile, sweep, window_kind):
     return warm, steady, depths
 
 
+_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "int8": torch.int8}
+_ROUND_F32, _ROUND_BF16, _ROUND_QUANT = 0, 1, 2
+
+
+def _dtype_of(name, x_dtype) -> torch.dtype:
+    """A stage dtype name (``None`` = the launch input's) as a torch dtype
+    the chain kernel stores."""
+    if name is None:
+        return x_dtype
+    if name not in _NAMES:
+        raise TypeError(
+            f"sweep_chain stores float32, bfloat16 or int8 stages, got "
+            f"{name!r}"
+        )
+    return _NAMES[name]
+
+
+def _stage_rounding(stages, x_dtype) -> list[int]:
+    """Per stage, how its stored value is rounded: 0 none (f32), 1 through
+    bf16, 2 onto its affine int8 grid (quantize, then dequantize for the
+    next stage's reads)."""
+    codes = []
+    for j, st in enumerate(stages):
+        dt = _dtype_of(st.dtype, x_dtype)
+        if st.quant is not None:
+            codes.append(_ROUND_QUANT)
+        elif dt == torch.int8:
+            raise ValueError(
+                f"stage {j} stores int8 without a (scale, zero_point): an "
+                "int8 stage is a quantized one"
+            )
+        else:
+            codes.append(_ROUND_BF16 if dt == torch.bfloat16 else _ROUND_F32)
+    return codes
+
+
+def _quant_pair(q):
+    """``(scale, zero_point)`` as the f32 values the arithmetic uses."""
+    return np.float32(q[0]).item(), float(int(q[1]))
+
+
+def _quantize(acc, q):
+    """``clip(round_half_even(acc / s) + zp, -128, 127)`` in f32 — the
+    reference's ``quantize_store`` before its int8 cast.  The divisor is a
+    tensor: PyTorch divides a CUDA tensor by a Python scalar as a multiply
+    by its reciprocal, which is not the IEEE quotient."""
+    s, zp = _quant_pair(q)
+    s = torch.tensor(s, dtype=torch.float32, device=acc.device)
+    return torch.clamp(torch.round(acc / s) + zp, -128.0, 127.0)
+
+
+def _dequantize(x, q):
+    """``(x - zp) · s`` in f32 — the reference's read of an int8 source."""
+    s, zp = _quant_pair(q)
+    return (x - zp) * s
+
+
+def bc_menu(st, n_true):
+    """The correction terms of stage ``st``'s boundary condition, in the
+    reference's order (``bc_terms`` of ``repro/kernels/stencil.py``).
+
+    Yields ``(kind, tests, offset, coef)``: ``kind`` ``"const"`` adds
+    ``coef`` where the tap's read leaves the domain along any axis of
+    ``tests`` (``(axis, tap offset)`` pairs); ``"read"`` adds ``coef ·
+    src[x + offset]`` where every ``(axis, plane)`` test of ``tests``
+    holds (the output cell lies on that global plane).  ``coef`` is the
+    f32 product the reference forms on the host: ``w·c`` for the
+    dirichlet/robin constant, ``gain·w`` for a clamped (neumann, robin's
+    α-scaled part) or mirrored (reflect) read.  Periodic and zero fill
+    yield nothing."""
+    if st.bc is None or st.bc[0] == "periodic":
+        return
+    kind, cval = st.bc
+    d = len(st.lo)
+    mode = "neumann" if kind == "robin" else kind
+    gain = np.float32(cval[0]) if kind == "robin" else np.float32(1)
+    for off, w in zip(np.asarray(st.offsets).tolist(), st.weights):
+        off = tuple(int(o) for o in off)
+        mix = [i for i in range(d) if off[i] != 0]
+        if not mix:
+            continue
+        if kind in ("dirichlet", "robin"):
+            c = cval if kind == "dirichlet" else cval[1]
+            yield ("const", tuple((i, off[i]) for i in mix), off,
+                   np.float32(w) * np.float32(c))
+            if kind == "dirichlet":
+                continue
+        menus = []
+        for i in mix:
+            opts: list = [None]
+            o = off[i]
+            if o < 0:
+                for e in range(1, -o + 1):
+                    oc = o + e if mode == "neumann" else o + 2 * e
+                    opts.append((-o - e, oc))
+            else:
+                for e in range(1, o + 1):
+                    oc = o - e if mode == "neumann" else o - 2 * e
+                    opts.append((int(n_true[i]) - 1 + e - o, oc))
+            menus.append(opts)
+        for combo in itertools.product(*menus):
+            if all(c is None for c in combo):
+                continue
+            oc = list(off)
+            tests = []
+            for i, c in zip(mix, combo):
+                if c is None:
+                    continue
+                tests.append((i, c[0]))
+                oc[i] = c[1]
+            yield ("read", tuple(tests), tuple(oc), gain * np.float32(w))
+
+
+def _bc_terms(st, src, size, pos, n_true):
+    """The plain correction sum of one stage over its whole extent
+    ``size``: a separate f32 sum from zero, term by term in
+    :func:`bc_menu` order (``pos[i]`` the global coordinate of each
+    output index along axis i)."""
+    d = len(size)
+    add = torch.zeros(size, dtype=torch.float32, device=src.device)
+
+    def along(i, v):
+        shape = [1] * d
+        shape[i] = size[i]
+        return v.view(shape)
+
+    for kind, tests, oc, coef in bc_menu(st, n_true):
+        if kind == "const":
+            inside = torch.ones(size, dtype=torch.bool, device=src.device)
+            for i, o in tests:
+                q = pos[i] + o
+                inside = inside & along(i, (q >= 0) & (q < int(n_true[i])))
+            add = add + torch.where(
+                inside, torch.zeros((), device=src.device),
+                torch.tensor(coef, device=src.device),
+            )
+            continue
+        mask = torch.ones(size, dtype=torch.bool, device=src.device)
+        for i, plane in tests:
+            mask = mask & along(i, pos[i] == plane)
+        sl = tuple(
+            slice(l + o, l + o + n) for o, l, n in zip(oc, st.lo, size)
+        )
+        add = add + torch.where(
+            mask, torch.tensor(coef, device=src.device) * src[sl],
+            torch.zeros((), device=src.device),
+        )
+    return add
+
+
 def sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
-                      window_kind="ring", n_true=None, dom=None):
-    """Stage by stage over the whole padded buffer: each stage's tap loop
-    in f32 over its suffix-halo extent, every intermediate zeroed outside
-    the true domain ``[0, n_true)`` (global coordinates, ``dom`` the
-    origin's) and round-tripped through the stage dtype (the input's)."""
+                      window_kind="ring", n_true=None, dom=None,
+                      in_quant=None):
+    """Stage by stage over the whole padded buffer, as the reference's
+    ``stage_apply`` computes each element: the source dequantized when it
+    holds int8 codes (``in_quant`` for the launch input), the tap loop in
+    f32 over the stage's suffix-halo extent, plus the boundary correction
+    sum; every intermediate zeroed outside the true domain ``[0, n_true)``
+    (global coordinates, ``dom`` the origin's; widened by the suffix halo
+    under periodic wrap) and rounded through its stage dtype.  The result
+    is the last stage's, at its dtype (int8 codes if it is quantized)."""
     d = x.ndim
     n_pad = _out_shape(x, lo_w, hi_w)
     n_true = tuple(int(n) for n in (n_true or n_pad))
     dom = tuple(int(v) for v in (dom or (0,) * d))
+    rounding = _stage_rounding(stages, x.dtype)
+    out_dtype = _dtype_of(stages[-1].dtype, x.dtype)
+    periodic = any(st.bc is not None and st.bc[0] == "periodic"
+                   for st in stages)
     cur = x.float()
+    if in_quant is not None:
+        cur = _dequantize(cur, in_quant)
     T = len(stages)
+    zero = torch.zeros((), device=x.device)
     for j, st in enumerate(stages):
         size = [
             n + int(sl) + int(sh)
             for n, sl, sh in zip(n_pad, st.suffix_lo, st.suffix_hi)
+        ]
+        pos = [
+            torch.arange(size[i], device=x.device)
+            + (dom[i] - int(st.suffix_lo[i]))
+            for i in range(d)
         ]
         acc = torch.zeros(size, dtype=torch.float32, device=x.device)
         for off, w in zip(np.asarray(st.offsets).tolist(), st.weights):
@@ -328,33 +507,95 @@ def sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
                 slice(l + o, l + o + n) for o, l, n in zip(off, st.lo, size)
             )
             acc = acc + _f32(w) * cur[sl]
+        if st.bc is not None and st.bc[0] != "periodic":
+            acc = acc + _bc_terms(st, cur, size, pos, n_true)
         if j == T - 1:
-            return acc.to(x.dtype)
+            if st.quant is not None:
+                acc = _quantize(acc, st.quant)
+            return acc.to(out_dtype)
         inside = torch.ones(size, dtype=torch.bool, device=x.device)
         for i in range(d):
-            pos = torch.arange(size[i], device=x.device) + (
-                dom[i] - int(st.suffix_lo[i])
-            )
-            ok = (pos >= 0) & (pos < n_true[i])
+            lob, hib = 0, n_true[i]
+            if periodic:
+                lob = -int(st.suffix_lo[i])
+                hib = n_true[i] + int(st.suffix_hi[i])
+            ok = (pos[i] >= lob) & (pos[i] < hib)
             shape = [1] * d
             shape[i] = size[i]
             inside = inside & ok.view(shape)
-        acc = torch.where(inside, acc, torch.zeros((), device=x.device))
-        cur = acc.to(x.dtype).float()
+        acc = torch.where(inside, acc, zero)
+        if rounding[j] == _ROUND_QUANT:
+            cur = _dequantize(_quantize(acc, st.quant), st.quant)
+        elif rounding[j] == _ROUND_BF16:
+            cur = acc.to(torch.bfloat16).float()
+        else:
+            cur = acc
     raise ValueError("a chain needs at least one stage")
 
 
-def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
-                window_kind="ring", n_true=None, dom=None):
-    """A fused chain of T >= 2 stages over one padded buffer (kernel 2).
+def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
+    """The correction-term table ``csrc/sweep_chain.cu`` reads: per-stage
+    row ranges ``begin`` (T + 1 prefix counts) and the rows, 12 int32
+    each, in :func:`bc_menu` order:
 
-    ``stages`` carry ``offsets``, ``weights``, ``lo``/``hi`` and
-    ``suffix_lo``/``suffix_hi`` per stage (the port's ``_Stage``);
-    ``n_true`` is the unpadded grid and ``dom`` the global coordinate of
-    its element 0 (zeros on one card)."""
-    _check([x], lo_w, hi_w, tile)
-    if len(stages) < 2:
-        raise ValueError("sweep_chain fuses T >= 2 stages")
+    ``[kind, n, role_0, val_0, role_1, val_1, role_2, val_2, o_s, o_c,
+    coef_bits, stage]`` — ``kind`` 0 for a constant (it fires where
+    ``pos + val`` leaves ``[0, n_true)`` along any test axis), 1 for a
+    read (it fires where ``pos == val`` on every test axis); ``role`` 0
+    the sweep axis, 1 and 2 the two cross axes of the lifted 3-D grid;
+    ``o_s`` the corrected offset along the sweep axis and ``o_c`` within
+    the source plane (``o[c0] · src_w1 + o[c1]``, as the taps'); ``coef``
+    the f32 coefficient's bits.  Raises when a corrected offset leaves the
+    stage's halo (the kernel indexes shared memory with it unchecked)."""
+    d = len(tile)
+    s = int(sweep) + 3 - d
+    c0, c1 = [i for i in range(3) if i != s]
+    role = {s: 0, c0: 1, c1: 2}
+    win = _lift([t + l + h for t, l, h in zip(tile, lo_w, hi_w)], d, 1)
+    begin = [0]
+    rows: list[list[int]] = []
+    for j, st in enumerate(stages):
+        src_w1 = win[c1] if j == 0 else _lift(stages[j - 1].ext, d, 1)[c1]
+        for kind, tests, off, coef in bc_menu(st, n_true):
+            off3 = _lift(off, d, 0)
+            if kind == "read" and any(
+                not -lo <= o <= hi for o, lo, hi in zip(off, st.lo, st.hi)
+            ):
+                raise ValueError(
+                    f"stage {j}: a {st.bc[0]} correction reads offset "
+                    f"{off}, outside the stage halo lo={tuple(st.lo)} "
+                    f"hi={tuple(st.hi)}"
+                )
+            row = [0 if kind == "const" else 1, len(tests)]
+            for i, v in tests:
+                row += [role[i + 3 - d], int(v)]
+            row += [0, 0] * (3 - len(tests))
+            if kind == "read":
+                row += [off3[s], off3[c0] * src_w1 + off3[c1]]
+            else:
+                row += [0, 0]
+            row += [int(np.float32(coef).view(np.int32)), j]
+            rows.append(row)
+        begin.append(len(rows))
+    return begin, rows
+
+
+def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
+                window_kind="ring", n_true=None, dom=None, in_quant=None):
+    """A fused chain of T >= 1 stages over one padded buffer (kernel 2).
+
+    ``stages`` carry ``offsets``, ``weights``, ``lo``/``hi``,
+    ``suffix_lo``/``suffix_hi``, ``bc``, ``dtype`` and ``quant`` per stage
+    (the port's ``_Stage``); ``n_true`` is the unpadded grid and ``dom``
+    the global coordinate of its element 0 (zeros on one card);
+    ``in_quant`` the ``(scale, zero_point)`` of an int8 input.  The
+    result is the padded output at the last stage's dtype."""
+    _check([x], lo_w, hi_w, tile, dtypes=tuple(_NAMES.values()))
+    T = len(stages)
+    if not 1 <= T <= _MAX_STAGES:
+        raise ValueError(
+            f"sweep_chain fuses T >= 1 stages, at most {_MAX_STAGES}; got {T}"
+        )
     if window_kind not in ("ring", "trapezoid"):
         raise ValueError(f"unknown window_kind {window_kind!r}")
     d = x.ndim
@@ -368,6 +609,10 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
         raise ValueError(
             "stage halos do not add up to the buffer's window halo"
         )
+    rounding = _stage_rounding(stages, x.dtype)
+    out_dtype = _dtype_of(stages[-1].dtype, x.dtype)
+    n_pad = _out_shape(x, lo_w, hi_w)
+    n_true = tuple(int(n) for n in (n_true or n_pad))
     smem = sweep_smem_bytes(
         tile, sweep, x.element_size(), n_inputs=1, pipelined=pipe,
         stage_halos=halos, window_kind=window_kind,
@@ -378,43 +623,63 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
             f"chain warm-up needs {len(warm)} schedule entries; the kernel "
             f"holds {_MAX_SCHED - len(steady)} — use a deeper sweep tile"
         )
+    n_taps = sum(len(st.weights) for st in stages)
+    if n_taps > _MAX_TAPS:
+        raise ValueError(
+            f"the chain has {n_taps} taps; the kernel holds {_MAX_TAPS}"
+        )
+    bc_begin, bc_rows = _bc_table(stages, tile, lo_w, hi_w, sweep, n_true)
+    if len(bc_rows) > _MAX_BC:
+        raise ValueError(
+            f"the chain's boundary conditions need {len(bc_rows)} "
+            f"correction terms; the kernel holds {_MAX_BC}"
+        )
     if x.device.type == "cpu":
         return sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep,
-                                 pipelined, window_kind, n_true, dom)
+                                 pipelined, window_kind, n_true, dom,
+                                 in_quant)
     if x.device.type != "cuda":
         raise RuntimeError(f"sweep_chain: unsupported device {x.device}")
-    n_pad = _out_shape(x, lo_w, hi_w)
-    out = torch.empty(n_pad, dtype=x.dtype, device=x.device)
-    geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, len(stages))
-    geom += list(_lift(n_true or n_pad, d, 1))
+    out = torch.empty(n_pad, dtype=out_dtype, device=x.device)
+    geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, T)
+    geom += list(_lift(n_true, d, 1))
     geom += list(_lift(dom or (0,) * d, d, 0))
+    geom += [
+        _DTYPE_CODE[out_dtype], int(in_quant is not None),
+        int(any(st.bc is not None and st.bc[0] == "periodic"
+                for st in stages)),
+    ]
     stage_geom: list[int] = []
+    stage_q: list[float] = []
     tap_begin = [0]
     tap_off: list[int] = []
     tap_w: list[float] = []
     for j, st in enumerate(stages):
         stage_geom += [
-            *_lift(st.lo, d, 0), *_lift(st.suffix_lo, d, 0),
-            *_lift(
-                [t + a + b for t, a, b in
-                 zip(tile, st.suffix_lo, st.suffix_hi)], d, 1,
-            ),
-            depths[j] if j < len(depths) else 0,
+            *_lift(st.lo, d, 0), *_lift(st.hi, d, 0),
+            *_lift(st.suffix_lo, d, 0), *_lift(st.ext, d, 1),
+            depths[j] if j < len(depths) else 0, rounding[j],
+            int(st.bc is not None and st.bc[0] != "periodic"),
         ]
+        stage_q += list(_quant_pair(st.quant or (1.0, 0)))
         o, w = _taps(st.offsets, st.weights, st.lo, st.hi, d)
         tap_off += o
         tap_w += w
         tap_begin.append(len(tap_w))
+    stage_q += list(_quant_pair(in_quant or (1.0, 0)))
     sched = [v for entry in warm + steady for v in entry]
+    bc = torch.tensor(bc_rows or [[0] * _BC_ROW], dtype=torch.int32,
+                      device=x.device)
     fn = _entry("sweep_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(
             _c(ctypes.c_longlong, geom), _c(ctypes.c_int, stage_geom),
-            _c(ctypes.c_int, tap_begin), _c(ctypes.c_int, tap_off),
-            _c(ctypes.c_float, tap_w), _c(ctypes.c_int, sched),
-            len(warm), len(steady), x.data_ptr(), out.data_ptr(), smem,
-            stream,
+            _c(ctypes.c_float, stage_q), _c(ctypes.c_int, tap_begin),
+            _c(ctypes.c_int, tap_off), _c(ctypes.c_float, tap_w),
+            _c(ctypes.c_int, sched), len(warm), len(steady),
+            _c(ctypes.c_int, bc_begin), bc.data_ptr(), x.data_ptr(),
+            out.data_ptr(), smem, stream,
         )
     _raise_rc("sweep_chain", rc)
     sweep_chain.launches += 1

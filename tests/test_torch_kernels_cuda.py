@@ -9,15 +9,30 @@ torch, numpy and the port, so it runs on a machine without jax:
 
 Kernel and plain version must agree bit for bit: both apply the taps in
 ``zip(offsets, weights)`` order as separate f32 multiplies and adds (the
-kernels are built with ``--fmad=false``).
+kernels are built with ``--fmad=false``), add the boundary corrections as
+one separate sum, and round each stage the same way (bf16 round to
+nearest even; int8 codes by the IEEE divide and half-even ``rint``).
+
+The differential corpus of ``tests/test_program_fuzz.py`` runs here too:
+:func:`corpus_spec` is a jax-free copy of its ``gen_spec``, held equal to
+the original seed by seed in ``tests/test_torch_program_corpus.py``.
 """
+
+import itertools
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import ir  # noqa: E402
 from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
+from repro_torch.core.tiling import (  # noqa: E402
+    halo_from_offsets,
+    sweep_smem_bytes,
+)
 from repro_torch.kernels import sweep  # noqa: E402
 from repro_torch.kernels import stencil as st  # noqa: E402
 
@@ -47,16 +62,24 @@ def _spec(o, w):
 
 
 def _launch(shape, tile, offsets_w, stages_w=None, n=1, dtype=torch.float32,
-            device="cpu", seed=0):
+            device="cpu", seed=0, **kw):
     rng = np.random.default_rng(seed)
-    us = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-          .to(device, dtype) for _ in range(n)]
-    return (us, *st._launch_inputs(us, offsets_w, tile, stages_w))
+    if kw.get("in_quant") is not None:
+        us = [torch.from_numpy(rng.integers(-128, 128, shape, np.int8))
+              .to(device) for _ in range(n)]
+    else:
+        us = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(device, dtype) for _ in range(n)]
+    return (us, *st._launch_inputs(us, offsets_w, tile, stages_w, **kw))
 
 
 def _same_bits(a, b):
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.element_size() == 1:
+        return torch.equal(a, b)
     view = torch.int16 if a.element_size() == 2 else torch.int32
-    return a.shape == b.shape and torch.equal(a.view(view), b.view(view))
+    return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -138,3 +161,215 @@ def test_launch_refused_above_the_shared_memory_limit(dev):
     with pytest.raises(ValueError, match="smaller tile"):
         st.stencil_pallas(x, star_stencil(3, 2), [0.1] * 13,
                           tile=(8, 64, 256), sweep_axis=0)
+
+
+# -- boundary conditions, stage dtypes, int8 frontiers ------------------------
+
+BOX27 = np.array(list(itertools.product((-1, 0, 1), repeat=3)))
+# Per-stage boundary, dtype and quantization configurations (``in_quant``:
+# the input is int8 codes).
+CHAIN_CONFIGS = {
+    "dirichlet": dict(bcs_w=(("dirichlet", 0.5),) * 2),
+    "neumann": dict(bcs_w=(("neumann", 0.0),) * 2),
+    "reflect": dict(bcs_w=(("reflect", 0.0),) * 2),
+    "robin": dict(bcs_w=(("robin", (0.7, 0.3)), ("robin", (-0.6, 0.25)))),
+    "periodic": dict(bcs_w=(("periodic", 0.0),) * 2),
+    "bf16": dict(dtypes_w=("bfloat16", "float32")),
+    "int8": dict(bcs_w=(("reflect", 0.0),) * 2, dtypes_w=("int8", "float32"),
+                 quants_w=((0.02, 3), None)),
+    "mixed": dict(bcs_w=(("robin", (0.4, 0.6)), ("neumann", 0.0)),
+                  dtypes_w=("int8", "bfloat16"), quants_w=((0.02, 3), None)),
+    "in_quant": dict(bcs_w=(None, ("reflect", 0.0)),
+                     dtypes_w=("bfloat16", "int8"),
+                     quants_w=(None, (0.05, -2)), in_quant=(0.1, 5)),
+}
+
+
+def _symmetric_chain(d, T):
+    if d == 3:
+        ops = (_spec(BOX27, np.linspace(-0.2, 0.3, 27)),
+               _spec(star_stencil(3, 2), np.linspace(-0.4, 0.5, 13)))
+    else:
+        offs = star_stencil(d, 2)
+        ops = (_spec(offs, np.linspace(-0.3, 0.4, len(offs))),) * 2
+    return ops[:T]
+
+
+@pytest.mark.parametrize("window_kind", ["ring", "trapezoid"])
+@pytest.mark.parametrize("config", sorted(CHAIN_CONFIGS))
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_sweep_chain_conditions_equal_plain(dev, case, config, window_kind):
+    shape, tile, sw = CASES[case]
+    kw = CHAIN_CONFIGS[config]
+    stages_w = _symmetric_chain(len(shape), 2)
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, stages_w[:1], stages_w, device=dev, seed=case, **kw)
+    iq = kw.get("in_quant")
+    before = sweep.sweep_chain.launches
+    k = sweep.sweep_chain(ins[0], stages, lo_w, hi_w, tile, sw, True,
+                          window_kind, shape, in_quant=iq)
+    assert sweep.sweep_chain.launches == before + 1
+    p = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, sw, True,
+                                window_kind, shape, in_quant=iq)
+    torch.cuda.synchronize()
+    assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("kind", ["dirichlet", "neumann", "reflect", "robin",
+                                  "periodic"])
+@pytest.mark.parametrize("case", range(len(CASES)))
+def test_single_stage_boundary_launch_equals_plain(dev, case, kind):
+    """T = 1 with a boundary runs on the chain kernel, through the
+    frontend and directly."""
+    shape, tile, sw = CASES[case]
+    value = {"dirichlet": 0.5, "robin": (0.7, 0.3)}.get(kind, 0.0)
+    (spec,) = _symmetric_chain(len(shape), 1)
+    prog = ir.chain_program([(np.asarray(spec[0]), spec[1])], len(shape),
+                            boundary=kind, value=value)
+    x = np.random.default_rng(case).standard_normal(shape).astype(np.float32)
+    before = sweep.sweep_chain.launches
+    gpu = ir.run_program(prog, x, tile=tile, sweep_axis=sw)
+    assert sweep.sweep_chain.launches == before + 1
+    cpu = ir.run_program(prog, x, tile=tile, sweep_axis=sw, device="cpu")
+    assert _same_bits(gpu.cpu(), cpu)
+
+
+def _corpus_seeds():
+    root = Path(__file__).resolve().parent / "corpus"
+    return sorted(int(json.loads(p.read_text())["seed"])
+                  for p in root.glob("seed_*.json"))
+
+
+def corpus_spec(seed: int) -> dict:
+    """A jax-free copy of ``gen_spec`` of ``tests/test_program_fuzz.py``:
+    one random legal program spec, fully determined by ``seed``."""
+    rng = np.random.default_rng(int(seed))
+    d = int(rng.integers(1, 4))
+    shape = tuple(int(rng.integers(2, 5)) * 8 for _ in range(d))
+    T = int(rng.integers(1, 5))
+    stages = []
+    for _ in range(T):
+        n_taps = int(rng.integers(2, 6))
+        offs = {(0,) * d}
+        while len(offs) < n_taps:
+            offs.add(tuple(int(o) for o in rng.integers(-2, 3, size=d)))
+        if rng.random() < 0.25:
+            offs = {tuple(-abs(o) for o in off) for off in offs}
+        offs = sorted(offs)
+        wts = [round(float(w), 3)
+               for w in rng.uniform(-0.5, 0.5, len(offs))]
+        stages.append({"offsets": [list(o) for o in offs], "weights": wts})
+    r = rng.random()
+    if r < 0.25:
+        bcs: list = [["periodic", 0.0]] * T
+    elif r < 0.6:
+        menu = ("zero", "dirichlet", "neumann", "reflect", "robin")
+        bcs = []
+        for _ in range(T):
+            kind = menu[int(rng.integers(0, len(menu)))]
+            if kind == "zero":
+                bcs.append(None)
+            elif kind == "dirichlet":
+                bcs.append(["dirichlet",
+                            round(float(rng.uniform(-1, 1)), 3)])
+            elif kind == "robin":
+                bcs.append(["robin",
+                            [round(float(rng.uniform(-1, 1)), 3),
+                             round(float(rng.uniform(-1, 1)), 3)]])
+            else:
+                bcs.append([kind, 0.0])
+    else:
+        bcs = [None] * T
+    dtypes: list = []
+    quants: list = []
+    for j in range(T):
+        q = rng.random()
+        if j < T - 1 and q < 0.2:
+            dtypes.append("int8")
+            quants.append([float(rng.choice([0.02, 0.05, 0.1])),
+                           int(rng.integers(-8, 9))])
+        elif j < T - 1 and q < 0.4:
+            dtypes.append("bfloat16")
+            quants.append(None)
+        else:
+            dtypes.append(None)
+            quants.append(None)
+    tile = list(shape)
+    a = int(rng.integers(0, d))
+    if rng.random() < 0.5:
+        tile[a] = shape[a] // 2
+    return {
+        "seed": int(seed),
+        "d": d,
+        "shape": list(shape),
+        "stages": stages,
+        "bcs": bcs,
+        "dtypes": dtypes,
+        "quants": quants,
+        "window_kind": "ring" if rng.random() < 0.5 else "trapezoid",
+        "tile": tile,
+    }
+
+
+def corpus_program(spec: dict) -> ir.Program:
+    """The port's program of a corpus spec (``_build_program`` of
+    ``tests/test_program_fuzz.py`` on the port's IR)."""
+    return ir.chain_program(
+        [(np.asarray(s["offsets"], dtype=np.int64), s["weights"])
+         for s in spec["stages"]],
+        spec["d"],
+        boundary=[
+            None if bc is None else (bc[0], bc[1] if not
+                                     isinstance(bc[1], list)
+                                     else tuple(bc[1]))
+            for bc in spec["bcs"]
+        ],
+        dtypes=spec["dtypes"],
+        quants=[None if q is None else (q[0], q[1])
+                for q in spec["quants"]],
+    )
+
+
+def corpus_tile(spec: dict) -> tuple[int, ...]:
+    """The corpus spec's tile, or — where its window and frontiers need
+    more than the 227 KB of shared memory a block may have (the corpus
+    tiles were sized for a TPU's VMEM) — the tile with its largest extent
+    halved until they fit.  The result does not depend on the tile."""
+    lowered = ir.lower(corpus_program(spec), tuple(spec["shape"]))
+    d = spec["d"]
+    halos = [halo_from_offsets([np.asarray(o).reshape(-1, d)], d)
+             for o, _ in lowered.stages]
+    tile = list(spec["tile"])
+    h_s = sum(lo + hi for lo, hi in (h[0] for h in halos))
+    while True:
+        # Pipelined only with a sweep overlap and more than one sweep step,
+        # as the kernels decide.
+        pipe = h_s > 0 and -(-spec["shape"][0] // tile[0]) > 1
+        try:
+            for wk in ("ring", "trapezoid"):
+                sweep_smem_bytes(tile, 0, 4, stage_halos=halos,
+                                 pipelined=pipe, window_kind=wk)
+            return tuple(tile)
+        except ValueError:
+            i = max(range(d), key=lambda a: tile[a])
+            tile[i] = -(-tile[i] // 2)
+
+
+@pytest.mark.parametrize("window_kind", ["ring", "trapezoid"])
+@pytest.mark.parametrize("seed", _corpus_seeds())
+def test_corpus_programs_on_the_card_equal_the_cpu(dev, seed, window_kind):
+    spec = corpus_spec(seed)
+    prog = corpus_program(spec)
+    try:
+        ir.lower(prog, tuple(spec["shape"]))
+    except ir.IRVerifyError:
+        pytest.skip(f"seed {seed}: ir.verify rejects the program")
+    x = np.random.default_rng(seed).standard_normal(spec["shape"]).astype(
+        np.float32)
+    kw = dict(tile=corpus_tile(spec), window_kind=window_kind)
+    before = sweep.sweep_chain.launches + sweep.sweep_apply.launches
+    gpu = ir.run_program(prog, x, **kw)
+    assert sweep.sweep_chain.launches + sweep.sweep_apply.launches \
+        == before + 1
+    cpu = ir.run_program(prog, x, device="cpu", **kw)
+    assert _same_bits(gpu.cpu(), cpu)

@@ -31,6 +31,11 @@ from repro_torch.core import tiling  # noqa: E402
 from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
 from repro_torch.kernels import ref, sweep  # noqa: E402
 from repro_torch.kernels import stencil as st  # noqa: E402
+from test_torch_kernels_cuda import (  # noqa: E402
+    BOX27,
+    CHAIN_CONFIGS,
+    _symmetric_chain,
+)
 
 
 def _spec(o, w):
@@ -39,12 +44,18 @@ def _spec(o, w):
 
 
 def _launch(shape, tile, offsets_w, stages_w=None, seed=0, n=1,
-            dtype=torch.float32):
-    """Padded launch buffers and geometry, as the host side builds them."""
+            dtype=torch.float32, **kw):
+    """Padded launch buffers and geometry, as the host side builds them
+    (``kw``: ``bcs_w``, ``dtypes_w``, ``quants_w``, ``in_quant``; with
+    ``in_quant`` the grid is made of int8 codes)."""
     rng = np.random.default_rng(seed)
-    us = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
-          .to(dtype) for _ in range(n)]
-    return (us, *st._launch_inputs(us, offsets_w, tile, stages_w))
+    if kw.get("in_quant") is not None:
+        us = [torch.from_numpy(rng.integers(-128, 128, shape, np.int8))
+              for _ in range(n)]
+    else:
+        us = [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+              .to(dtype) for _ in range(n)]
+    return (us, *st._launch_inputs(us, offsets_w, tile, stages_w, **kw))
 
 
 O13, W13 = star_stencil(3, 2), np.linspace(-0.4, 0.5, 13).tolist()
@@ -130,6 +141,26 @@ def test_stencil_ref_equals_jax(boundary, value):
     assert np.array_equal(np.asarray(want), got.numpy())
 
 
+@pytest.mark.parametrize("boundary,value", [
+    ("zero", 0.0), ("dirichlet", 1.5), ("neumann", 0.0), ("reflect", 0.0),
+    ("periodic", 0.0), ("robin", (0.5, -0.25)),
+])
+@pytest.mark.parametrize("shape,dtype", [((9, 10, 11), "bfloat16"),
+                                         ((2, 3, 9), "float32")])
+def test_stencil_ref_equals_jax_bf16_and_short_axes(boundary, value, shape,
+                                                    dtype):
+    """bf16 grids, and axes shorter than the stencil's reach (the pads
+    wrap or reflect more than once), bit for bit."""
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = torch.from_numpy(x).to(getattr(torch, dtype))
+    want = jref.stencil_ref(jx, O13, W13, boundary, value)
+    got = ref.stencil_ref(tx, O13, W13, boundary, value)
+    assert str(got.dtype) == f"torch.{dtype}"
+    assert np.array_equal(np.asarray(want.astype(jnp.float32)),
+                          got.float().numpy())
+
+
 def test_quantize_refs_equal_jax():
     x = np.random.default_rng(2).standard_normal(4096).astype(np.float32)
     x[:8] = [0.125, -0.125, 0.375, 2.5 * 0.05, -2.5 * 0.05, 0.0, 9.0, -9.0]
@@ -182,14 +213,35 @@ def _axes(d, sweep_axis):
     return s, c[0], c[1]
 
 
+def _bf16(v):
+    return torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+        torch.bfloat16).float().numpy()
+
+
+def _quant(v, q):
+    s_, zp = np.float32(q[0]), np.float32(int(q[1]))
+    return np.clip(np.round(v / s_) + zp, np.float32(-128), np.float32(127))
+
+
+def _dequant(v, q):
+    return (v - np.float32(int(q[1]))) * np.float32(q[0])
+
+
 def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
-             pipelined, window_kind, n_true):
+             pipelined, window_kind, n_true, in_quant=None):
     """Row-by-row replay of sweep_apply.cu (``stages is None``) or
-    sweep_chain.cu for f32 padded inputs ``x`` (a list of p buffers)."""
+    sweep_chain.cu for padded inputs ``x`` (a list of p buffers), returned
+    as f32 (int8 outputs as their codes).  The chain replay reads the
+    host-built correction-term table as the kernel does (roles, global
+    planes, ring-relative sweep offset, flat cross offset, coefficient
+    bits) and rounds each stored row as its stage's rounding code says."""
     d = x[0].ndim
     s, c0, c1 = _axes(d, sweep_axis)
     perm = (s, c0, c1)
-    X = [a.numpy().reshape(_lift3(d, a.shape, 1)).transpose(perm) for a in x]
+    X = [a.float().numpy().reshape(_lift3(d, a.shape, 1)).transpose(perm)
+         for a in x]
+    if in_quant is not None:
+        X = [_dequant(a, in_quant) for a in X]
     tile3 = np.array(_lift3(d, tile, 1))[list(perm)]
     lo3 = np.array(_lift3(d, lo_w, 0))[list(perm)]
     hi3 = np.array(_lift3(d, hi_w, 0))[list(perm)]
@@ -210,13 +262,21 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
     if stages is not None:
         warm, steady, depths = sweep.chain_schedule(
             stages, tile, sweep_axis, window_kind)
+        rounding = sweep._stage_rounding(stages, x[0].dtype)
+        bc_begin, bc_rows = sweep._bc_table(stages, tile, lo_w, hi_w,
+                                            sweep_axis, n_true)
+        periodic = any(stg.bc is not None and stg.bc[0] == "periodic"
+                       for stg in stages)
         st3 = []
         for j, stg in enumerate(stages):
             lo_j = np.array(_lift3(d, stg.lo, 0))[list(perm)]
             sfx = np.array(_lift3(d, stg.suffix_lo, 0))[list(perm)]
             ext = tile3 + sfx + np.array(
                 _lift3(d, stg.suffix_hi, 0))[list(perm)]
-            st3.append((lo_j, sfx, ext, taps(stg.offsets), stg.weights))
+            hi_j = np.array(_lift3(d, stg.hi, 0))[list(perm)]
+            rows_j = bc_rows[bc_begin[j]:bc_begin[j + 1]]
+            st3.append((lo_j, sfx, ext, taps(stg.offsets), stg.weights,
+                        hi_j, rows_j))
 
     for t0, t1 in itertools.product(range(ntiles[1]), range(ntiles[2])):
         b0, b1 = t0 * tile3[1], t1 * tile3[2]
@@ -253,30 +313,74 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                         b1:b1 + tile3[2]] = acc
                 continue
             for j, r0, r1 in (warm if k == 0 else steady):
-                lo_j, sfx, ext, tp, ws = st3[j]
+                lo_j, sfx, ext, tp, ws, hi_j, rows_j = st3[j]
+                stg = stages[j]
+
+                def src_row(g_src):
+                    if j == 0:
+                        return rings[0].get(g_src + lo3[0], 0)
+                    return fronts[j - 1].get(g_src, st3[j - 1][1][0])
+
                 for r in range(r0, r1):
                     g = k * t_s + r
                     acc = np.zeros((ext[1], ext[2]), np.float32)
                     for o, w in zip(tp, ws):
-                        if j == 0:
-                            src = rings[0].get(g + o[0] + lo3[0], 0)
-                        else:
-                            src = fronts[j - 1].get(g + o[0],
-                                                    st3[j - 1][1][0])
+                        src = src_row(g + o[0])
                         acc = acc + np.float32(w) * src[
                             lo_j[1] + o[1]:lo_j[1] + o[1] + ext[1],
                             lo_j[2] + o[2]:lo_j[2] + o[2] + ext[2]]
-                    if j == len(stages) - 1:
-                        out[g, b0:b0 + ext[1], b1:b1 + ext[2]] = acc
-                        continue
                     p1 = np.arange(ext[1]) + b0 - sfx[1]
                     p2 = np.arange(ext[2]) + b1 - sfx[2]
-                    inside = (
-                        (0 <= g < n_true3[0])
-                        & ((p1 >= 0) & (p1 < n_true3[1]))[:, None]
-                        & ((p2 >= 0) & (p2 < n_true3[2]))[None, :]
-                    )
-                    fronts[j].put(g, sfx[0], np.where(inside, acc, 0.0))
+                    pos = (np.full((ext[1], ext[2]), g), p1[:, None]
+                           + 0 * p2[None, :], 0 * p1[:, None] + p2[None, :])
+                    if stg.bc is not None and stg.bc[0] != "periodic":
+                        add = np.zeros_like(acc)
+                        near = np.zeros(acc.shape, bool)
+                        for a in range(3):
+                            near |= (pos[a] < lo_j[a]) | (
+                                pos[a] >= n_true3[a] - hi_j[a])
+                        flat = ((np.arange(ext[1])[:, None] + lo_j[1])
+                                * (win[2] if j == 0 else st3[j - 1][2][2])
+                                + np.arange(ext[2])[None, :] + lo_j[2])
+                        for row in rows_j:
+                            kind, n = row[0], row[1]
+                            tests = [(row[2 + 2 * t], row[3 + 2 * t])
+                                     for t in range(n)]
+                            coef = np.array(row[10], np.int32).view(
+                                np.float32)
+                            if kind == 0:
+                                hit = np.zeros(acc.shape, bool)
+                                for a, off in tests:
+                                    q = pos[a] + off
+                                    hit |= (q < 0) | (q >= n_true3[a])
+                                term = np.broadcast_to(coef, acc.shape)
+                            else:
+                                hit = np.ones(acc.shape, bool)
+                                for a, plane in tests:
+                                    hit &= pos[a] == plane
+                                src = src_row(g + row[8]).reshape(-1)
+                                term = coef * src[flat + row[9]]
+                            hit &= near
+                            add = np.where(hit, add + term, add)
+                        acc = acc + add
+                    if j == len(stages) - 1:
+                        if rounding[j] == sweep._ROUND_QUANT:
+                            acc = _quant(acc, stg.quant)
+                        out[g, b0:b0 + ext[1], b1:b1 + ext[2]] = acc
+                        continue
+                    inside = np.ones(acc.shape, bool)
+                    for a in range(3):
+                        lob, hib = 0, n_true3[a]
+                        if periodic:
+                            lob = -sfx[a]
+                            hib = n_true3[a] + ext[a] - tile3[a] - sfx[a]
+                        inside &= (pos[a] >= lob) & (pos[a] < hib)
+                    v = np.where(inside, acc, np.float32(0))
+                    if rounding[j] == sweep._ROUND_BF16:
+                        v = _bf16(v)
+                    elif rounding[j] == sweep._ROUND_QUANT:
+                        v = _dequant(_quant(v, stg.quant), stg.quant)
+                    fronts[j].put(g, sfx[0], v)
     inv = np.argsort(perm)
     return out.transpose(inv).reshape(tuple(int(n) for n in
                                             np.array(out_shape)[inv]
@@ -326,6 +430,81 @@ def test_chain_kernel_algorithm_equals_plain(case, pipelined, window_kind):
     got = _emulate(ins, None, None, stages, lo_w, hi_w, tile, sw,
                    pipelined, window_kind, shape)
     assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("config", sorted(CHAIN_CONFIGS))
+@pytest.mark.parametrize("case", range(len(EMU_CASES)))
+def test_chain_kernel_with_boundaries_and_dtypes_equals_plain(case, config):
+    """The replay reads the correction-term table, rounds and quantizes as
+    the kernel does, and equals the plain version bit for bit (a table
+    row with a wrong role, plane or offset fails here)."""
+    shape, tile, sw = EMU_CASES[case]
+    kw = CHAIN_CONFIGS[config]
+    stages_w = _symmetric_chain(len(shape), 2)
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, stages_w[:1], stages_w, seed=case, **kw
+    )
+    iq = kw.get("in_quant")
+    wk = "ring" if case % 2 == 0 else "trapezoid"
+    want = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, sw,
+                                   True, wk, shape, in_quant=iq)
+    got = _emulate(ins, None, None, stages, lo_w, hi_w, tile, sw, True, wk,
+                   shape, in_quant=iq)
+    assert want.dtype == {"float32": torch.float32,
+                          "bfloat16": torch.bfloat16,
+                          "int8": torch.int8}[kw.get("dtypes_w",
+                                                     ("float32",) * 2)[-1]]
+    got = torch.from_numpy(got).to(want.dtype)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["dirichlet", "neumann", "reflect", "robin"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_bc_table_equals_plain_bc_terms(d, kind):
+    """The host-built correction-term table, evaluated in numpy over a
+    one-tile window (flat cross offsets, roles, planes, coefficient bits),
+    equals the plain ``_bc_terms`` sum of every boundary kind."""
+    value = {"dirichlet": -0.75, "robin": (0.7, 0.3)}.get(kind, 0.0)
+    shape = (9, 10, 11)[:d]
+    offs = BOX27[:, 3 - d:] if d == 3 else star_stencil(d, 2)
+    offs = np.unique(offs, axis=0)
+    w = np.linspace(-0.3, 0.4, len(offs)).tolist()
+    stages_w = (_spec(offs, w),)
+    us, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, shape, stages_w, stages_w, bcs_w=((kind, value),))
+    (stg,) = stages
+    x = ins[0].float()
+    pos = [torch.arange(n) for n in shape]
+    want = sweep._bc_terms(stg, x, list(shape), pos, shape).numpy()
+    begin, rows = sweep._bc_table(stages, shape, lo_w, hi_w, 0, shape)
+    assert begin == [0, len(rows)] and rows
+    # The table's roles and offsets are (sweep, c0, c1) of the lifted grid.
+    perm = _axes(d, 0)
+    X = x.numpy().reshape(_lift3(d, x.shape, 1)).transpose(perm)
+    lo3 = np.array(_lift3(d, lo_w, 0))[list(perm)]
+    n3 = tuple(np.array(_lift3(d, shape, 1))[list(perm)])
+    idx = np.indices(n3)
+    got = np.zeros(n3, np.float32)
+    w1 = X.shape[2]
+    for row in rows:
+        tests = [(row[2 + 2 * t], row[3 + 2 * t]) for t in range(row[1])]
+        coef = np.array(row[10], np.int32).view(np.float32)
+        if row[0] == 0:
+            hit = np.zeros(n3, bool)
+            for a, off in tests:
+                hit |= (idx[a] + off < 0) | (idx[a] + off >= n3[a])
+            term = np.broadcast_to(coef, n3)
+        else:
+            hit = np.ones(n3, bool)
+            for a, plane in tests:
+                hit &= idx[a] == plane
+            plane_src = X[idx[0] + lo3[0] + row[8]].reshape(n3 + (-1,))
+            flat = (idx[1] + lo3[1]) * w1 + idx[2] + lo3[2] + row[9]
+            term = coef * np.take_along_axis(
+                plane_src, flat[..., None], -1)[..., 0]
+        got = np.where(hit, got + term, got)
+    got = got.transpose(np.argsort(perm)).reshape(shape)
+    assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("T", [2, 3, 5, 8])
@@ -385,6 +564,17 @@ def test_sweep_smem_bytes_layout():
     assert tiling.frontier_depth((4, 16, 32), halos, 0, 0, "ring") == 8
 
 
+def test_sweep_smem_bytes_prices_int8_windows_at_one_byte():
+    """An int8 input ring costs one byte an element; frontiers stay f32
+    whatever the stage dtype (they hold already-rounded values)."""
+    h = [(2, 2)] * 3
+    assert tiling.sweep_smem_bytes((8, 16, 32), 0, 1, halo=h,
+                                   pipelined=True) == 20 * 20 * 36
+    halos = [h] * 2
+    ring = tiling.sweep_smem_bytes((4, 16, 32), 0, 1, stage_halos=halos)
+    assert ring == 12 * 24 * 40 + 8 * 20 * 36 * 4
+
+
 def test_sweep_smem_bytes_raises_above_227kb():
     h = [(2, 2)] * 3
     with pytest.raises(ValueError, match="232448"):
@@ -405,7 +595,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
         sweep.sweep_apply([ins[0].double()], o, ws, lo_w, hi_w, (4, 8, 8), 0)
     with pytest.raises(ValueError, match="lo_w"):
         sweep.sweep_apply(ins, o, ws, lo_w, hi_w, (5, 8, 8), 0)
-    with pytest.raises(ValueError, match="T >= 2"):
+    with pytest.raises(ValueError, match="T >= 1"):
         sweep.sweep_chain(ins[0], [], lo_w, hi_w, (4, 8, 8), 0)
 
 
@@ -423,7 +613,7 @@ def test_plain_path_counts_no_launch():
 @pytest.mark.parametrize("call", [
     dict(tile=None), dict(plan=object()), dict(tune=True),
     dict(num_shards=2), dict(trace="t.json"), dict(vmem_budget=1 << 20),
-    dict(dtypes=["bfloat16"]),
+    dict(mesh=object()),
 ])
 def test_arguments_outside_the_slice_name_their_roadmap_item(call):
     kw = dict(tile=(4, 8, 8), sweep_axis=0, device="cpu")
@@ -433,14 +623,31 @@ def test_arguments_outside_the_slice_name_their_roadmap_item(call):
 
 
 def test_boundary_and_quantized_programs_name_their_roadmap_item():
+    """The calls of ``ROADMAP.md`` items 4-6 (boundary taps, stage dtypes,
+    int8 frontiers), which the port once refused, now run and equal the
+    JAX launch: a neumann chain, a quantized stage, a bf16 stage, and a
+    ``dtypes=["bfloat16"]`` single application."""
+    from repro import ir as jir
+    from repro.kernels import stencil as jst
     from repro_torch import ir
 
-    x = np.zeros((12, 13, 14), np.float32)
-    for prog in (
-        ir.chain_program([(O7, W7)] * 2, 3, boundary="neumann"),
-        ir.chain_program([(O7, W7)] * 2, 3, quants=[(0.1, 0), None]),
-        ir.chain_program([(O7, W7)] * 2, 3, dtypes=["bfloat16", None]),
+    x = np.random.default_rng(5).standard_normal((12, 13, 14)).astype(
+        np.float32)
+    kw = dict(tile=(4, 8, 8), sweep_axis=0)
+    for spec in (
+        dict(boundary="neumann"),
+        dict(quants=[(0.1, 0), None]),
+        dict(dtypes=["bfloat16", None]),
     ):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ir.run_program(prog, x, tile=(4, 8, 8), sweep_axis=0,
-                           device="cpu")
+        jprog = jir.chain_program([(O7, W7)] * 2, 3, **spec)
+        want = jir.run_program(jprog, jnp.asarray(x), interpret=True, **kw)
+        got = ir.run_program(ir.Program.from_json(jprog.serialize()), x,
+                             device="cpu", **kw)
+        assert np.array_equal(np.asarray(want), got.numpy()), spec
+    want = jst.stencil_pallas(jnp.asarray(x), O7, W7, dtypes=["bfloat16"],
+                              interpret=True, **kw)
+    got = st.stencil_pallas(x, O7, W7, dtypes=["bfloat16"], device="cpu",
+                            **kw)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(np.asarray(want.astype(jnp.float32)),
+                          got.float().numpy())
