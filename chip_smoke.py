@@ -6,9 +6,10 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 No ``PYTHONPATH`` is needed: the script puts its own ``src/`` on
-``sys.path``.  It builds both sweep kernels from ``src/repro_torch/csrc/``
-with nvcc (into the ignored ``build/``), then drives the port's main path
-through its public entry points at full size:
+``sys.path``.  It builds every kernel (the two sweep kernels and the
+Mamba2 conv) from ``src/repro_torch/csrc/`` with nvcc (into the ignored
+``build/``), then drives the port's paths through their public entry
+points at full size:
 
 * ``apply_f32_512``     — the 13-point star on a 512³ f32 grid,
   ``stencil_pallas(tile=(8, 16, 32), sweep_axis=0)``;
@@ -30,7 +31,15 @@ through its public entry points at full size:
 * ``chain_int8_512``    — three reflect applications at 512³ f32 with
   stages 0 and 1 quantized to int8 (scale 0.02, zero point 3), plus the
   same chain split after stage 1 into two launches that hand int8 codes
-  over (``in_quant``).
+  over (``in_quant``);
+* ``mamba2_serve``      — Mamba2-2.7B at its published width and depth (64
+  layers, weights drawn from a seeded generator) with the conv on the
+  kernel (``pallas_conv=True, conv_tile=256``), serving batch 4 × 2048
+  prompt tokens + 16 generated tokens through ``launch.serve.serve``
+  (prefill, then 15 greedy decode steps); the conv kernel against its
+  plain version on layer 0's real conv input; prefill(S−1) + decode(1)
+  against a teacher-forced forward; a 2-layer full-width model on the
+  card against the CPU.
 
 Each phase zeroes the kernels' launch counters, drives the path, reads the
 counters (each kernel of the path must have launched), checks the output
@@ -59,7 +68,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
-REPLACES = "src/repro/kernels/stencil.py:148"
+# The TPU kernel each CUDA kernel replaces, and which of its parts.
+REPLACES = {
+    "sweep_apply": ("src/repro/kernels/stencil.py:148", "B1+B2"),
+    "sweep_chain": ("src/repro/kernels/stencil.py:148", "B1+B3+B4+B5+B6"),
+    "conv1d": ("src/repro/kernels/conv1d.py:44", "all"),
+}
 
 
 def fail(msg: str) -> None:
@@ -95,7 +109,7 @@ def main() -> None:
     from repro_torch import convert, ir
     from repro_torch.core.cache_fitting import star_stencil
     from repro_torch.core.tiling import sweep_smem_bytes
-    from repro_torch.kernels import _build, ref, sweep
+    from repro_torch.kernels import _build, conv1d, ref, sweep
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.ops import apply_star_2nd_order
 
@@ -106,6 +120,7 @@ def main() -> None:
     kernels = {
         "sweep_apply": sweep.sweep_apply,
         "sweep_chain": sweep.sweep_chain,
+        "conv1d": conv1d.causal_conv1d,
     }
 
     def emit(obj) -> None:
@@ -734,9 +749,13 @@ def main() -> None:
     del u
     torch.cuda.empty_cache()
 
+    # -- mamba2_serve -------------------------------------------------------
+    summary["conv1d"] = [mamba2_phase(
+        torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
+        max_err)]
+
     # -- summary ---------------------------------------------------------------
     rows = []
-    parts = {"sweep_apply": "B1+B2", "sweep_chain": "B1+B3+B4+B5+B6"}
     for name, phases in summary.items():
         head = phases[0]
 
@@ -746,10 +765,11 @@ def main() -> None:
                 return ln[name]
             return sum(v[name] for v in ln.values() if name in v)
 
+        replaces, parts = REPLACES[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
-            "replaces": REPLACES, "parts": parts[name],
+            "replaces": replaces, "parts": parts,
             "launches": sum(n_launch(ph) for ph in phases),
             "max_abs_err": max(ph["max_abs_err"] for ph in phases),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
@@ -762,6 +782,236 @@ def main() -> None:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),
     }})
+
+
+def _kernel_class(name: str) -> str:
+    n = name.lower()
+    if "conv1d_silu" in n:
+        return "conv1d kernel"
+    if any(k in n for k in ("gemm", "cutlass", "xmma", "nvjet", "cublas")):
+        return "matmul (cuBLAS)"
+    if "reduce" in n:
+        return "reduction"
+    if "cat" in n:
+        return "concat"
+    if "copy" in n:
+        return "copy/cast"
+    if "elementwise" in n or "vectorized" in n:
+        return "elementwise"
+    return "other"
+
+
+def profile_breakdown(torch, fn) -> dict:
+    """Device time of one call of ``fn`` by kernel class and by kernel
+    (top 8), and the share of the host-clock span the device was busy,
+    from ``torch.profiler``.  Measurement only: if the profiler records no
+    device events here, the result says "not measured"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        return {"device_time": "not measured: no device events recorded"}
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # union of the kernels' intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_class: dict = {}
+    by_name: dict = {}
+    for e in kernels:
+        d = e.time_range.elapsed_us()
+        by_class[_kernel_class(e.name)] = by_class.get(
+            _kernel_class(e.name), 0.0) + d / 1e3
+        by_name[e.name[:90]] = by_name.get(e.name[:90], 0.0) + d / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {
+        "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+        "device_idle_share": max(0.0, 1.0 - busy / wall_us),
+        "kernel_launches": len(kernels),
+        "ms_by_class": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+        "top_kernels_ms": dict(top),
+    }
+
+
+def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
+                 bits_equal, max_err) -> dict:
+    """The ``mamba2_serve`` phase; returns the conv kernel's record."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import conv1d
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
+    from repro_torch.models import ssm
+    from repro_torch.models.layers import embed_tokens, rms_norm, unembed
+
+    batch, prompt, gen = 4, 2048, 16
+    cfg = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, pallas_conv=True, conv_tile=256))
+    cdt = cfg.compute_dtype
+    model = get_model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=dev)
+
+    # The main path: counts zeroed just before, read just after.
+    reset()
+    toks, cold = serve(cfg, params, prompts, gen, device=dev)
+    launched = counts()
+    assert launched["conv1d"] == cfg.n_layers, launched
+    assert launched["sweep_apply"] == 0 and launched["sweep_chain"] == 0
+    assert tuple(toks.shape) == (batch, gen), toks.shape
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab
+    # Warm runs for the times (the first run includes cuBLAS set-up).
+    warm = [serve(cfg, params, prompts, gen, device=dev) for _ in range(2)]
+    same_tokens = all(bool(torch.equal(t, toks)) for t, _ in warm)
+    prefill_ms = min(w["prefill_s"] for _, w in warm) * 1e3
+    decode_ms = min(w["decode_s"] for _, w in warm) * 1e3 / (gen - 1)
+    # Where the time goes: one prefill and one decode step under the
+    # profiler (after the timed runs, so its cost is in no time above).
+    prof_cache = model.init_cache(batch, prompt + 1)
+    prof = {"prefill": profile_breakdown(torch, lambda: model.prefill(
+        params, {"tokens": prompts}, prof_cache))}
+    prof["decode_step"] = profile_breakdown(torch, lambda: model.decode_step(
+        params, prof_cache, toks[:, :1], prompt))
+    del prof_cache
+
+    with torch.inference_mode():
+        # The conv kernel on layer 0's real conv input (zero state, as the
+        # prefill passes it from a fresh cache).
+        emb = params.embed.tensors()
+        p0 = params.layers[0].tensors()
+        x0 = embed_tokens(cfg, emb, prompts)
+        _, xbc, _ = ssm._in_proj(cfg, p0, rms_norm(x0, p0["ln"]))
+        w, b = p0["conv_w"].to(cdt), p0["conv_b"].to(cdt)
+        width = w.shape[0]
+        st = torch.zeros((batch, width - 1, xbc.shape[2]), dtype=cdt,
+                         device=dev)
+        tile = cfg.ssm.conv_tile
+        k_out = conv1d.causal_conv1d_launch(xbc, w, b, tile, st)
+        p_out = conv1d.causal_conv1d_plain(xbc, w, b, st)
+        torch.cuda.synchronize()
+        exact = bits_equal(k_out, p_out)
+        err = max_err(k_out, p_out)
+        diff = (k_out.float() - p_out.float()).abs()
+        n_diff = int((diff > 0).sum())
+        # Band if not bit-equal: one bf16 ulp of the output (2^-8 relative),
+        # from an ulp of difference between this build's expf and ATen's.
+        band_ok = bool((diff <= 2.0 ** -8 * p_out.float().abs() + 1e-30)
+                       .all())
+        assert exact or band_ok, (err, n_diff)
+        ms = time_ms(lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile, st),
+                     reps=20, warmup=3)
+        plain_ms = time_ms(lambda: conv1d.causal_conv1d_plain(xbc, w, b, st),
+                           reps=10)
+        # Yardstick: one depthwise F.conv1d (channels first, left pad W-1,
+        # first S outputs) computes the same pre-activation; it omits silu.
+        wl = w.t().contiguous()[:, None, :]
+        xt = xbc.transpose(1, 2)
+
+        def library():
+            return F.conv1d(xt, wl, b, padding=width - 1,
+                            groups=xbc.shape[2])
+
+        lib_ms = time_ms(library, reps=20, warmup=3)
+        lib_out = library()[..., :prompt].transpose(1, 2)
+        lib_diff = max_err(lib_out * torch.sigmoid(lib_out), k_out)
+        n_el = xbc.numel()
+        in_bytes = (xbc.numel() + st.numel() + w.numel() + b.numel()) * 2
+        nbytes = in_bytes + k_out.numel() * 2
+        flops = (2 * width + 1 + 4) * n_el  # taps, bias, silu (exp, +, /, ×)
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        tf = flops / F32_FLOPS_PER_S * 1e3
+        del x0, xbc, k_out, p_out, diff, lib_out, st
+        torch.cuda.empty_cache()
+
+        # prefill(S-1) + decode(1) against a teacher-forced forward, in the
+        # band of tests/test_models.py::test_decode_matches_teacher_forcing.
+        xf, _ = ssm.ssm_forward(cfg, params, prompts, 0)
+        ref_lg = unembed(cfg, emb, xf[:, -2:]).float()
+        del xf
+        cache = model.init_cache(batch, prompt)
+        lg1, cache = model.prefill(params, {"tokens": prompts[:, :-1]}, cache)
+        lg2, _ = model.decode_step(params, cache, prompts[:, -1:], prompt - 1)
+        tf_err = [max_err(lg1[:, 0], ref_lg[:, 0]),
+                  max_err(lg2[:, 0], ref_lg[:, 1])]
+        tf_ok = all(bool(torch.allclose(a[:, 0].float(), r, atol=0.2,
+                                        rtol=0.05))
+                    for a, r in ((lg1, ref_lg[:, 0]), (lg2, ref_lg[:, 1])))
+        assert tf_ok, tf_err
+        del cache, lg1, lg2, ref_lg
+        torch.cuda.empty_cache()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+
+    # A 2-layer full-width model, batch 1 × 256 tokens, on the card and on
+    # the CPU (plain versions), same weights: prefill + 2 decode steps.
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    p_cpu = get_model(cfg2, device="cpu").init(1)
+    p_gpu = ssm.SSMModel(cfg2, device=dev)
+    p_gpu.load_state_dict(p_cpu.state_dict())
+    small = torch.randint(0, cfg.vocab, (1, 258),
+                          generator=torch.Generator().manual_seed(7))
+    logits = {}
+    for where, prm in (("cpu", p_cpu), ("card", p_gpu)):
+        m2 = get_model(cfg2, device="cpu" if where == "cpu" else dev)
+        cache = m2.init_cache(1, 258)
+        lg, cache = m2.prefill(prm, {"tokens": small[:, :256]}, cache)
+        out = [lg]
+        for i in (256, 257):
+            lg, cache = m2.decode_step(prm, cache, small[:, i:i + 1], i)
+            out.append(lg)
+        logits[where] = torch.cat(out, 1).float().cpu()
+    cpu_err = max_err(logits["card"], logits["cpu"])
+    # Band: bf16 logits of magnitude ~1-4 (ulp 2^-7..2^-6) from two
+    # accumulation orders (cuBLAS, the CPU's GEMM) and per-op bf16 rounding.
+    cpu_ok = bool(torch.allclose(logits["card"], logits["cpu"], atol=0.1,
+                                 rtol=0.02))
+    assert cpu_ok, cpu_err
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+
+    phase = {
+        "phase": "mamba2_serve", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params, "batch": batch,
+        "prompt_tokens": prompt, "generated_tokens": gen,
+        "conv_tile": tile, "conv_shape": [batch, prompt, n_el // (batch * prompt)],
+        "launches": launched, "init_s": init_s,
+        "cold": cold, "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "prefill_tokens_per_s": batch * prompt / prefill_ms * 1e3,
+        "decode_tokens_per_s": batch / decode_ms * 1e3,
+        "same_tokens_warm": same_tokens, "peak_memory_gb": peak_gb,
+        "profile": prof,
+        "exact_vs_plain": exact, "n_differ_vs_plain": n_diff,
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "library_ms": lib_ms, "library": "F.conv1d(groups=C), no silu",
+        "library_max_abs_diff": lib_diff,
+        "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else
+        "operations", "bytes": nbytes, "flops": flops,
+        "teacher_forcing_max_abs_err": tf_err,
+        "card_vs_cpu_2layer_max_abs_err": cpu_err,
+        "card": card_line,
+    }
+    emit(phase)
+    return phase
 
 
 if __name__ == "__main__":

@@ -1,0 +1,236 @@
+"""Causal depthwise conv1d + silu — the Mamba2 block's conv — on the card.
+
+Source: ``src/repro/kernels/conv1d.py:44`` ``_conv_call`` (its ``body``
+at line 54), a Pallas TPU kernel that sweeps tiles of ``tile_s`` tokens
+per batch row and shifts the W-1-token halo inside VMEM.  Here it is
+``csrc/conv1d.cu``: each block owns one (batch row, token tile, channel
+block), reads its own halo rows from ``x`` or ``state``, and keeps the
+last W inputs in registers while each thread walks down its tile (the
+design note is in the source).
+
+    out[b, s, c] = silu(Σ_t f32(x[b, s-W+1+t, c]) · f32(w[t, c]) + f32(bias[c]))
+
+accumulated in f32 in that order from 0 and stored in x's dtype (f32 or
+bf16); rows before s = 0 come from ``state`` (B, W-1, C) when it is given,
+else zeros.
+
+Bound: bytes.  Mamba2-2.7B's prefill conv (batch 4, 2048 tokens,
+C = 5120 + 2·128 = 5376, bf16) reads x and writes out once, 2 × 88.08 MB,
+0.0526 ms at 3.35 TB/s; it runs once per layer, 64 times a prefill.
+
+:func:`causal_conv1d_launch` is the kernel's wrapper: on a CUDA tensor it
+launches the kernel (and counts the launch in ``causal_conv1d.launches``)
+or raises; on a CPU tensor it runs :func:`causal_conv1d_plain`, the plain
+PyTorch version beside it (``_prepend_halo`` + the unrolled f32 loop +
+silu), which the tests use.  :func:`causal_conv1d` is the entry point with
+the reference's signature and its custom VJP as a ``torch.autograd.Function``
+whose backward is plain torch math, as the reference's is plain jnp.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import resolve_device
+from . import _build
+
+__all__ = [
+    "causal_conv1d",
+    "causal_conv1d_launch",
+    "causal_conv1d_plain",
+]
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_MAX_WIDTH = 4  # kMaxWidth of conv1d.cu: the kernel is unrolled per width
+_PLANNER = "ROADMAP.md queue A, item 8 (Hopper cost model and planner)"
+
+
+def _silu(acc: torch.Tensor) -> torch.Tensor:
+    # jax.nn.silu's form; on the card ATen's f32 sigmoid is
+    # 1 / (1 + exp(-a)), the expression the kernel evaluates.
+    return acc * torch.sigmoid(acc)
+
+
+def _prepend_halo(x, conv_w, state, tile_s):
+    """Concat the W-1 halo (zeros or the previous tail) and round S up to
+    a multiple of the tile — the reference's ``_prepend_halo``."""
+    b, s, c = x.shape
+    halo = conv_w.shape[0] - 1
+    tile_s = min(tile_s, s)
+    pad_s = -(-s // tile_s) * tile_s
+    if state is None:
+        head = torch.zeros((b, halo, c), dtype=x.dtype, device=x.device)
+    else:
+        head = state.to(x.dtype)
+    tail = torch.zeros((b, pad_s - s, c), dtype=x.dtype, device=x.device)
+    return torch.cat([head, x, tail], dim=1), tile_s
+
+
+def causal_conv1d_plain(x, conv_w, conv_b, state=None):
+    """The kernel's function in plain PyTorch: the unrolled f32 loop over
+    the halo'd input, then silu, stored in x's dtype.  The result does not
+    depend on the tile, so the whole sequence is one tile: no round-up
+    rows (on the CPU, ATen's vectorized sigmoid can differ by an ulp with
+    an element's place in the buffer, so padding would change results)."""
+    b, s, c = x.shape
+    xp, _ = _prepend_halo(x, conv_w, state, s)
+    wf = conv_w.float()
+    acc = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for t in range(conv_w.shape[0]):
+        acc = acc + xp[:, t:t + s, :].float() * wf[t]
+    acc = acc + conv_b.float()
+    return _silu(acc).to(x.dtype)
+
+
+def _check(x, conv_w, conv_b, state, tile_s) -> None:
+    if x.ndim != 3:
+        raise ValueError(f"x must be (B, S, C), got shape {tuple(x.shape)}")
+    b, s, c = x.shape
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the conv kernel takes f32 or bf16 x, got {x.dtype}")
+    if conv_w.ndim != 2 or conv_w.shape[1] != c or conv_w.shape[0] < 1:
+        raise ValueError(f"conv_w must be (W, {c}), got {tuple(conv_w.shape)}")
+    if tuple(conv_b.shape) != (c,):
+        raise ValueError(f"conv_b must be ({c},), got {tuple(conv_b.shape)}")
+    width = conv_w.shape[0]
+    if state is not None and tuple(state.shape) != (b, width - 1, c):
+        raise ValueError(
+            f"state must be ({b}, {width - 1}, {c}), got {tuple(state.shape)}"
+        )
+    if not conv_w.is_floating_point() or not conv_b.is_floating_point():
+        raise TypeError("conv_w and conv_b must be floating point")
+    if int(tile_s) < 1:
+        raise ValueError(f"tile_s must be positive, got {tile_s}")
+    for t in (conv_w, conv_b, state):
+        if t is not None and t.device != x.device:
+            raise ValueError("x, conv_w, conv_b and state must share a device")
+
+
+_ARGTYPES = [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _entry():
+    fn = _build.load("conv1d").conv1d_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = _ARGTYPES
+    return fn
+
+
+def causal_conv1d_launch(x, conv_w, conv_b, tile_s, state=None):
+    """The kernel's wrapper.  x: (B, S, C) f32 or bf16; conv_w: (W, C);
+    conv_b: (C,); state: (B, W-1, C) or None; ``tile_s`` tokens per block.
+    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
+    on the current stream or raises."""
+    _check(x, conv_w, conv_b, state, tile_s)
+    dev = x.device
+    if dev.type == "cpu":
+        return causal_conv1d_plain(x, conv_w, conv_b, state)
+    if dev.type != "cuda":
+        raise RuntimeError(f"causal_conv1d: unsupported device {dev}")
+    b, s, c = x.shape
+    width = conv_w.shape[0]
+    if width > _MAX_WIDTH:
+        raise ValueError(
+            f"the conv kernel takes widths 1..{_MAX_WIDTH}, got {width}"
+        )
+    if not x.is_contiguous():
+        raise ValueError("the conv kernel takes a contiguous x")
+    # The weights and bias go to the kernel as f32, the exact widening the
+    # reference's f32 multiply-adds apply to them; state as x's dtype.
+    w32 = conv_w.to(torch.float32).contiguous()
+    b32 = conv_b.to(torch.float32).contiguous()
+    st = None if state is None else state.to(x.dtype).contiguous()
+    out = torch.empty_like(x)
+    bufs = [t for t in (x, w32, b32, out, st) if t is not None]
+    vec = 2 if c % 2 == 0 and all(
+        t.data_ptr() % (2 * t.element_size()) == 0 for t in bufs
+    ) else 1
+    tile_s = min(int(tile_s), s)
+    fn = _entry()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(
+            x.data_ptr(), None if st is None else st.data_ptr(),
+            w32.data_ptr(), b32.data_ptr(), out.data_ptr(), b, s, c, width,
+            tile_s, _DTYPE_CODE[x.dtype], vec, stream,
+        )
+    if rc == -2:
+        raise RuntimeError(
+            f"causal_conv1d: the kernel refused shape {(b, s, c)}, width "
+            f"{width}, tile_s {tile_s} (at most 65535 tiles and batch rows)"
+        )
+    if rc != 0:
+        raise RuntimeError(f"causal_conv1d: CUDA launch failed with cudaError {rc}")
+    causal_conv1d.launches += 1
+    return out
+
+
+class _ConvGrad(torch.autograd.Function):
+    """The reference's custom VJP (``conv1d.py:141-181``): the forward is
+    the kernel, the backward recomputes the pre-activation in f32, applies
+    silu', then the transposed (anti-causal) correlation."""
+
+    @staticmethod
+    def forward(ctx, x, conv_w, conv_b, tile_s):
+        ctx.save_for_backward(x, conv_w, conv_b)
+        return causal_conv1d_launch(x, conv_w, conv_b, tile_s)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, conv_w, conv_b = ctx.saved_tensors
+        b, s, c = x.shape
+        width = conv_w.shape[0]
+        halo = width - 1
+        wf = conv_w.float()
+        full = torch.cat(
+            [torch.zeros((b, halo, c), dtype=x.dtype, device=x.device), x], 1
+        )
+        pre = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+        for i in range(width):
+            pre = pre + full[:, i:i + s, :].float() * wf[i]
+        pre = pre + conv_b.float()
+        sig = torch.sigmoid(pre)
+        gpre = g.float() * sig * (1.0 + pre * (1.0 - sig))
+        gp = torch.cat([gpre, gpre.new_zeros((b, halo, c))], 1)
+        dx = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+        for i in range(width):
+            dx = dx + gp[:, halo - i:halo - i + s, :] * wf[i]
+        dw = torch.stack([
+            torch.einsum("btc,btc->c", gpre, full[:, i:i + s, :].float())
+            for i in range(width)
+        ])
+        db = gpre.sum(dim=(0, 1))
+        return dx.to(x.dtype), dw.to(conv_w.dtype), db.to(conv_b.dtype), None
+
+
+def causal_conv1d(x, conv_w, conv_b, tile_s=None, state=None, device=None):
+    """x: (B, S, C); conv_w: (W, C); conv_b: (C,).  Causal, silu-activated
+    (matches ``models.ssm._causal_conv``).  ``state``: optional (B, W-1, C)
+    tail of the previous sequence, used as the leading halo (serving path;
+    not differentiated).  Without ``state`` the call is differentiable
+    through the reference's custom VJP.
+
+    Inputs (tensors or arrays) go to ``device``: ``None`` means the card,
+    ``"cpu"`` runs the plain version.  ``tile_s=None`` asks the planner,
+    which is not ported yet, and raises ``NotImplementedError``."""
+    if tile_s is None:
+        raise NotImplementedError(
+            f"causal_conv1d(tile_s=None): the planned tile is not in the "
+            f"port yet: {_PLANNER}; pass tile_s="
+        )
+    dev = resolve_device(device)
+    x, conv_w, conv_b = (torch.as_tensor(t).to(dev) for t in (x, conv_w, conv_b))
+    if state is None:
+        return _ConvGrad.apply(x, conv_w, conv_b, int(tile_s))
+    return causal_conv1d_launch(
+        x, conv_w, conv_b, int(tile_s), torch.as_tensor(state).to(dev)
+    )
+
+
+causal_conv1d.launches = 0

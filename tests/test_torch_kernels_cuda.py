@@ -1,4 +1,4 @@
-"""The port's two CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA
 device (a CUDA kernel has no CPU mode; its plain version is tested on the
@@ -12,6 +12,12 @@ Kernel and plain version must agree bit for bit: both apply the taps in
 kernels are built with ``--fmad=false``), add the boundary corrections as
 one separate sum, and round each stage the same way (bf16 round to
 nearest even; int8 codes by the IEEE divide and half-even ``rint``).
+
+The conv kernel (``csrc/conv1d.cu``) equals its plain version bit for bit
+too: the same f32 multiply-adds in the same order, and silu as
+``acc * (1 / (1 + exp(-acc)))``, the form ATen's f32 sigmoid takes on the
+card.  The Mamba2 smoke model on the card is held against the CPU within
+the band of ``tests/test_torch_mamba2.py`` for bf16.
 
 The differential corpus of ``tests/test_program_fuzz.py`` runs here too:
 :func:`corpus_spec` is a jax-free copy of its ``gen_spec``, held equal to
@@ -33,7 +39,7 @@ from repro_torch.core.tiling import (  # noqa: E402
     halo_from_offsets,
     sweep_smem_bytes,
 )
-from repro_torch.kernels import sweep  # noqa: E402
+from repro_torch.kernels import conv1d, sweep  # noqa: E402
 from repro_torch.kernels import stencil as st  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -373,3 +379,118 @@ def test_corpus_programs_on_the_card_equal_the_cpu(dev, seed, window_kind):
         == before + 1
     cpu = ir.run_program(prog, x, device="cpu", **kw)
     assert _same_bits(gpu.cpu(), cpu)
+
+
+# -- the Mamba2 conv kernel -----------------------------------------------------
+
+# (batch, seq, channels, tile_s): a ragged last tile, one token, an odd
+# channel count (one channel per thread), and the serving shape of
+# Mamba2-2.7B's prefill (C = 5120 + 2·128).
+CONV_CASES = [(2, 37, 24, 8), (3, 1, 16, 4), (2, 37, 25, 8),
+              (4, 2048, 5376, 256)]
+
+
+def _conv_inputs(b, s, c, width, with_state, dtype, dev, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn((b, s, c), generator=g).to(dev, dtype)
+    w = (torch.randn((width, c), generator=g) * 0.3).to(dev, dtype)
+    bias = (torch.randn((c,), generator=g) * 0.1).to(dev, dtype)
+    state = (torch.randn((b, width - 1, c), generator=g).to(dev, dtype)
+             if with_state else None)
+    return x, w, bias, state
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+@pytest.mark.parametrize("width", [4, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(CONV_CASES)))
+def test_conv1d_equals_plain(dev, case, dtype, width, with_state):
+    b, s, c, tile_s = CONV_CASES[case]
+    x, w, bias, state = _conv_inputs(b, s, c, width, with_state, dtype, dev)
+    before = conv1d.causal_conv1d.launches
+    k = conv1d.causal_conv1d_launch(x, w, bias, tile_s, state)
+    assert conv1d.causal_conv1d.launches == before + 1
+    p = conv1d.causal_conv1d_plain(x, w, bias, state)
+    torch.cuda.synchronize()
+    assert _same_bits(k, p), float((k.float() - p.float()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_does_not_depend_on_the_tile(dev, dtype):
+    x, w, bias, state = _conv_inputs(2, 45, 40, 4, True, dtype, dev, seed=1)
+    outs = [conv1d.causal_conv1d(x, w, bias, tile_s=t, state=state)
+            for t in (1, 5, 16, 64)]
+    torch.cuda.synchronize()
+    assert all(_same_bits(o, outs[0]) for o in outs)
+
+
+def test_conv1d_misaligned_buffer_takes_one_channel_per_thread(dev):
+    """x starts one element into its allocation, so channel pairs are not
+    aligned: the wrapper launches the one-channel variant."""
+    b, s, c = 2, 19, 24
+    flat = torch.randn(b * s * c + 1, device=dev, dtype=torch.bfloat16)
+    x = flat[1:].view(b, s, c)
+    assert x.is_contiguous() and x.data_ptr() % 4 != 0
+    _, w, bias, state = _conv_inputs(b, s, c, 4, True, torch.bfloat16, dev)
+    k = conv1d.causal_conv1d_launch(x, w, bias, 8, state)
+    torch.cuda.synchronize()
+    assert _same_bits(k, conv1d.causal_conv1d_plain(x, w, bias, state))
+
+
+def test_conv1d_refuses_what_it_cannot_take(dev):
+    x = torch.zeros((1, 8, 6), device=dev)
+    with pytest.raises(ValueError, match="widths"):
+        conv1d.causal_conv1d_launch(x, torch.zeros((5, 6), device=dev),
+                                    torch.zeros(6, device=dev), 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv1d.causal_conv1d_launch(
+            torch.zeros((1, 6, 8), device=dev).transpose(1, 2),
+            torch.zeros((4, 6), device=dev), torch.zeros(6, device=dev), 4)
+    with pytest.raises(RuntimeError, match="refused"):
+        conv1d.causal_conv1d_launch(torch.zeros((1, 70000, 2), device=dev),
+                                    torch.zeros((4, 2), device=dev),
+                                    torch.zeros(2, device=dev), 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba2_smoke_model_on_the_card_equals_the_cpu(dev, dtype):
+    """Prefill (through the conv kernel) and two decode steps of the smoke
+    config on the card against the CPU, with the same parameters: f32 to
+    1e-5, bf16 within two bf16 ulps of the logits' scale (matmul
+    accumulation order differs between cuBLAS and the CPU)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import get_model
+
+    cfg = get_smoke_config("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, compute_dtype=dtype, ssm=dataclasses.replace(
+        cfg.ssm, pallas_conv=True, conv_tile=8))
+    toks = torch.randint(0, cfg.vocab, (2, 23),
+                         generator=torch.Generator().manual_seed(7))
+    logits = {}
+    params_cpu = get_model(cfg, device="cpu").init(0)
+    for where in ("cpu", "cuda"):
+        model = get_model(cfg, device=where)
+        params = params_cpu
+        if where == "cuda":
+            from repro_torch.models.ssm import SSMModel
+
+            params = SSMModel(cfg, device=dev)
+            params.load_state_dict(params_cpu.state_dict())
+        cache = model.init_cache(2, 23)
+        before = conv1d.causal_conv1d.launches
+        lg, cache = model.prefill(params, {"tokens": toks[:, :21]}, cache)
+        if where == "cuda":
+            assert conv1d.causal_conv1d.launches == before + cfg.n_layers
+        out = [lg]
+        for i in (21, 22):
+            lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i)
+            out.append(lg)
+        logits[where] = torch.cat(out, dim=1).float().cpu()
+    want = logits["cpu"]
+    if dtype == torch.float32:
+        tol = dict(atol=1e-5, rtol=1e-5)
+    else:
+        tol = dict(atol=2.0 ** -7 * float(want.abs().max()), rtol=2.0 ** -7)
+    torch.testing.assert_close(logits["cuda"], want, **tol)

@@ -52,7 +52,9 @@ def test_the_scan_sees_the_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert "src/repro_torch/kernels/stencil.py" in names
     assert "chip_smoke.py" in names
-    assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 2
+    assert "src/repro_torch/kernels/conv1d.py" in names
+    assert "src/repro_torch/models/ssm.py" in names
+    assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 
 
 def _no_cuda():
@@ -62,13 +64,19 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", [
     "stencil_pallas", "stencil_iterate", "multi_stencil_pallas",
-    "run_program", "from_reference",
+    "run_program", "from_reference", "causal_conv1d", "model_init",
+    "model_init_cache", "model_prefill", "model_decode_step", "serve",
+    "params_from_reference",
 ])
 def test_entry_points_default_to_the_card(entry):
     _no_cuda()
     from repro_torch import convert, ir
+    from repro_torch.configs import get_smoke_config
     from repro_torch.core.cache_fitting import star_stencil
     from repro_torch.kernels import stencil as st
+    from repro_torch.kernels.conv1d import causal_conv1d
+    from repro_torch.launch.serve import serve
+    from repro_torch.models import get_model
 
     x = np.zeros((12, 13, 14), np.float32)
     offs, w = star_stencil(3, 1), [0.5] * 7
@@ -83,6 +91,28 @@ def test_entry_points_default_to_the_card(entry):
         "from_reference": lambda: convert.from_reference(
             ir.stencil_program(offs, w).serialize(), {"u": x}),
     }
+    # The Mamba2 serving path: parameters and a cache made on the CPU, then
+    # each entry point called without device="cpu".
+    cfg = get_smoke_config("mamba2-2.7b")
+    on_cpu = get_model(cfg, device="cpu")
+    params = on_cpu.init(0)
+    cache = on_cpu.init_cache(1, 8)
+    toks = np.zeros((1, 4), np.int64)
+    conv_x = np.zeros((1, 6, 8), np.float32)
+    calls.update({
+        "causal_conv1d": lambda: causal_conv1d(
+            conv_x, np.ones((4, 8), np.float32), np.zeros(8, np.float32),
+            tile_s=4),
+        "model_init": lambda: get_model(cfg).init(0),
+        "model_init_cache": lambda: get_model(cfg).init_cache(1, 8),
+        "model_prefill": lambda: get_model(cfg).prefill(
+            params, {"tokens": toks}, cache),
+        "model_decode_step": lambda: get_model(cfg).decode_step(
+            params, cache, toks[:, :1], 4),
+        "serve": lambda: serve(cfg, params, toks, 2),
+        "params_from_reference": lambda: convert.params_from_reference(
+            {}, cfg),
+    })
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
 
