@@ -48,7 +48,11 @@ the stated band), holds each kernel against its plain version on the same
 padded inputs (bit for bit) and ring against trapezoid frontiers (bit for
 bit), and times kernel, plain version and — where one PyTorch call
 computes the same function — that call (``F.conv3d`` or ``nn.Conv3d``
-with TF32 off, a yardstick the port never calls) with CUDA events.  It prints one JSON line per phase, a
+with TF32 off, a yardstick the port never calls) with CUDA events.  Each
+chain phase also says why the chain kernel runs as it does: threads and
+shared bytes per CTA, CTAs and warps resident per SM (the CUDA occupancy
+query) and ptxas's register and spill line; ``chain_T3_512`` prints the
+unfused call time over the fused one.  It prints one JSON line per phase, a
 ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing a result.
@@ -57,6 +61,7 @@ CUDA, or outside a checkout, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -187,6 +192,51 @@ def main() -> None:
     def spec(offsets, weights):
         return (tuple(map(tuple, np.asarray(offsets).tolist())),
                 tuple(float(w) for w in weights))
+
+    mangled = {torch.float32: "f", torch.bfloat16: "13__nv_bfloat16",
+               torch.int8: "a"}
+
+    def ptxas_by_function(name) -> dict:
+        """Per function of kernel ``name``'s library, what ``ptxas -v``
+        said: registers (entry functions), stack frame and spill bytes."""
+        out, cur = {}, None
+        for ln in _build.PTXAS.get(name, []):
+            m = re.search(r"(?:Compiling entry function|Function properties "
+                          r"for) '?([\w$]+)", ln)
+            if m:
+                cur = out.setdefault(m.group(1), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                cur.update(registers=int(m.group(1)), line=ln)
+        return out
+
+    def chain_info(in_dtype, smem) -> dict:
+        """Why the chain kernel runs as it does at this launch: threads and
+        shared bytes per CTA, CTAs and warps resident per SM (the CUDA
+        occupancy query), and ptxas's registers and spills for this
+        instantiation, with the spill total over all of them."""
+        fns = ptxas_by_function("sweep_chain")
+        key = f"sweep_chain_kernelI{mangled[in_dtype]}E"
+        mine = [v for k, v in fns.items() if key in k]
+        ctas = sweep.chain_occupancy(in_dtype, smem)
+        return {
+            "threads_per_cta": sweep.CHAIN_THREADS,
+            "smem_bytes_per_cta": smem, "ctas_per_sm": ctas,
+            "warps_per_sm": ctas * sweep.CHAIN_THREADS // 32,
+            "ptxas": mine[0] if mine else "not found",
+            "chain_spill_bytes_all_functions": sum(
+                v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                for v in fns.values()),
+        }
 
     summary: dict = {}
     gen = torch.Generator(device=dev)
@@ -389,6 +439,8 @@ def main() -> None:
         "ms": times["ring"], "ms_by_window": times, "smem_bytes": smem,
         "plain_ms": plain_ms, "call_ms": call_ms,
         "unfused_call_ms": unfused_ms, "unfused_tile": [8, 16, 32],
+        "unfused_over_fused": unfused_ms / call_ms,
+        **chain_info(torch.float32, smem["ring"]),
         "library_ms": None,
         **bound(shape, 4, 4, 1, [len(s_.weights) for s_ in stages]),
         "bytes_moved": moved, "flops_computed": computed, "card": card_line,
@@ -450,6 +502,7 @@ def main() -> None:
     phase = {
         "phase": "chain_ragged", "shape": list(shape), "tile": list(tile),
         "sweep_axis": 0, "stages": 2, "launches": launched,
+        **chain_info(torch.float32, sweep.chain_smem_bytes(*cargs)),
         "exact_vs_plain": exact, "max_abs_err": err,
         "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
         "plain_ms": plain_ms, "library_ms": None,
@@ -588,6 +641,11 @@ def main() -> None:
             "plain_ms": plain_ms, "call_ms": call_ms, "library_ms": lib_ms,
             "library_max_abs_diff": lib_diff,
             **({f"ms_without_{without}": without_ms} if without else {}),
+            **({"boundary_share": (times[windows[0]] - without_ms)
+                / times[windows[0]]} if without == "boundary" else {}),
+            **chain_info(ins[0].dtype, sweep.chain_smem_bytes(
+                ins[0], stages, lo_w, hi_w, tile, 0, True, windows[0],
+                shape)),
             **bound(shape, u.element_size(), p_out.element_size(), 1,
                     [len(s_.weights) for s_ in stages]),
             "bytes_moved": ins[0].numel() * ins[0].element_size()
@@ -716,6 +774,7 @@ def main() -> None:
         "plain_ms": time_ms(lambda: sweep.sweep_chain_plain(*cargs), reps=3,
                             warmup=1),
         **bound(big, 1, 4, 1, [len(w13)]),
+        **chain_info(torch.int8, sweep.chain_smem_bytes(*cargs)),
     }
     del ins, k_out, p_out, cargs, codes
     torch.cuda.empty_cache()

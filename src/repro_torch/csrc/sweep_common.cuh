@@ -1,12 +1,14 @@
 // Device helpers shared by sweep_apply.cu and sweep_chain.cu: element
-// conversion, the global-to-shared row copy into a window ring, and the
-// per-step window pipeline (halo'd window at step 0, then one t_s-row
-// slab per step, prefetched by cp.async one step ahead when pipelined).
+// conversion, the global-to-shared row copies into a window ring (element
+// by element in load_rows, which sweep_apply.cu uses; 16-byte blocks in
+// load_rows_wide, which sweep_chain.cu uses), and the per-step window
+// pipeline (halo'd window at step 0, then one t_s-row slab per step,
+// prefetched by cp.async one step ahead when pipelined).
 //
 // A params struct P passed to these helpers has the fields
 //   in_stride[3] (element strides of the padded input), win[3] (window
 //   extent per axis), sweep, c0, c1 (sweep and cross axes), rows (ring
-//   depth in sweep rows).
+//   depth in sweep rows); load_rows_wide also reads copy16.
 
 #pragma once
 
@@ -82,6 +84,118 @@ __device__ void load_rows(const Params& P, const T* src, T* ring,
                  (base_c0 + x0) * P.in_stride[P.c0] +
                  (base_c1 + x1) * P.in_stride[P.c1];
     copy_elem(ring + static_cast<long long>(slot) * plane + x0 * w1 + x1, s);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+// One contiguous run of `len` elements from global to shared memory by one
+// warp: 16-byte cp.async.cg blocks where source and destination share
+// their alignment modulo 16, the unaligned ends (or the whole run, where
+// the two alignments differ) element by element through copy_elem.
+template <typename T>
+__device__ __forceinline__ void copy_run(T* dst, const T* src, int len,
+                                         int lane) {
+  constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+  const unsigned long long sa = reinterpret_cast<unsigned long long>(src);
+  const unsigned da =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  int head = len, nblk = 0;
+  if (((sa ^ da) & 15u) == 0) {
+    head = min(len, static_cast<int>(((16u - (sa & 15u)) & 15u) /
+                                     sizeof(T)));
+    nblk = (len - head) / kPer;
+  }
+  const int body_end = head + nblk * kPer;
+  const int units = head + nblk + (len - body_end);
+  for (int u = lane; u < units; u += 32) {
+    if (u < head) {
+      copy_elem(dst + u, src + u);
+    } else if (u < head + nblk) {
+      const int e = head + (u - head) * kPer;
+      cp_async16(dst + e, src + e);
+    } else {
+      const int e = body_end + (u - head - nblk);
+      copy_elem(dst + e, src + e);
+    }
+  }
+}
+
+// Exact quotient and remainder of 0 <= e < 2^22 by d >= 1, from a float
+// estimate corrected once (the estimate is within 1/2 of e / d there):
+// a few instructions where an int division takes a software routine.
+struct FastDiv {
+  int d;
+  float inv;
+};
+__device__ __forceinline__ FastDiv make_div(int d) {
+  return {d, __frcp_rn(static_cast<float>(d))};
+}
+__device__ __forceinline__ int divide(int e, const FastDiv& f, int& rem) {
+  int q = __float2int_rz(__fmul_rn(__int2float_rn(e), f.inv));
+  int r = e - q * f.d;
+  if (r < 0) {
+    --q;
+    r += f.d;
+  } else if (r >= f.d) {
+    ++q;
+    r -= f.d;
+  }
+  rem = r;
+  return q;
+}
+
+// load_rows with the rows copied as 16-byte cp.async.cg blocks.  Where the
+// whole launch is aligned (P.copy16: the input's base, sweep and c0 strides,
+// the tile's c1 extent and the window's c1 row all multiples of 16 bytes,
+// c1 the minor axis), each thread copies whole blocks of a flat index over
+// (row, c0, block); otherwise, with c1 the minor axis, one warp copies each
+// contiguous row through copy_run; else element by element (load_rows).
+template <typename T, typename Params>
+__device__ void load_rows_wide(const Params& P, const T* src, T* ring,
+                               long long g0, int n, long long base_c0,
+                               long long base_c1) {
+  const int w1 = P.win[P.c1];
+  const int w0 = P.win[P.c0];
+  const int plane = w0 * w1;
+  const int slot0 = static_cast<int>(g0 % P.rows);
+  const T* base = src + g0 * P.in_stride[P.sweep] +
+                  base_c0 * P.in_stride[P.c0] + base_c1;
+  if (P.copy16) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    const int nb = w1 / kPer;
+    const FastDiv per_row = make_div(w0 * nb), per_run = make_div(nb);
+    for (int u = threadIdx.x; u < n * w0 * nb; u += blockDim.x) {
+      int rem, b;
+      const int r = divide(u, per_row, rem);
+      const int x0 = divide(rem, per_run, b);
+      int slot = slot0 + r;
+      if (slot >= P.rows) slot -= P.rows;
+      cp_async16(ring + slot * plane + x0 * w1 + b * kPer,
+                 base + r * P.in_stride[P.sweep] + x0 * P.in_stride[P.c0] +
+                     b * kPer);
+    }
+    return;
+  }
+  if (P.in_stride[P.c1] != 1) {
+    load_rows(P, src, ring, g0, n, base_c0, base_c1);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
+  const FastDiv per_row = make_div(w0);
+  for (int run = threadIdx.x >> 5; run < n * w0; run += nwarps) {
+    int x0;
+    const int r = divide(run, per_row, x0);
+    int slot = slot0 + r;
+    if (slot >= P.rows) slot -= P.rows;
+    copy_run(ring + slot * plane + x0 * w1,
+             base + r * P.in_stride[P.sweep] + x0 * P.in_stride[P.c0], w1,
+             lane);
   }
 }
 

@@ -62,9 +62,12 @@ def _target(name: str) -> Path:
 
 
 def _ptxas_lines(text: str) -> list[str]:
+    """The lines of ``ptxas -v`` that name a function or give its
+    registers, spills or shared memory."""
+    keep = ("registers", "spill", "smem", "Compiling entry function",
+            "Function properties")
     return [
-        ln.strip() for ln in text.splitlines()
-        if "registers" in ln or "spill" in ln or "smem" in ln
+        ln.strip() for ln in text.splitlines() if any(k in ln for k in keep)
     ]
 
 

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.tiling import (
+    SMEM_BLOCK_LIMIT,
     chain_halo,
     frontier_depth,
     stage_suffix_halos,
@@ -35,8 +36,11 @@ from ..core.tiling import (
 from . import _build
 
 __all__ = [
-    "THREADS",
+    "APPLY_THREADS",
+    "CHAIN_THREADS",
+    "chain_occupancy",
     "chain_points",
+    "chain_smem_bytes",
     "chain_schedule",
     "sweep_apply",
     "sweep_apply_plain",
@@ -44,7 +48,9 @@ __all__ = [
     "sweep_chain_plain",
 ]
 
-THREADS = 256  # threads per CTA; the kernels declare __launch_bounds__(256)
+# Threads per CTA, each equal to its kernel's __launch_bounds__:
+APPLY_THREADS = 256  # csrc/sweep_apply.cu
+CHAIN_THREADS = 512  # csrc/sweep_chain.cu (kThreads)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _APPLY_DTYPES = (torch.float32, torch.bfloat16)
 # The fixed tables of sweep_chain.cu: kMaxStages, kMaxTaps, kMaxSched and
@@ -54,6 +60,10 @@ _MAX_TAPS = 160
 _MAX_SCHED = 96
 _MAX_BC = 4096
 _BC_ROW = 12  # int32 per correction term; see _bc_table
+
+
+def _align16(n: int) -> int:
+    return -(-int(n) // 16) * 16
 
 
 def _f32(w) -> float:
@@ -112,7 +122,7 @@ def _strides(x: torch.Tensor, d: int):
     return _lift(x.stride(), d, 0)
 
 
-def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in):
+def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in, threads):
     """The int64 geometry head both C entry points read (23 entries)."""
     d = x.ndim
     tile3 = _lift(tile, d, 1)
@@ -126,7 +136,7 @@ def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in):
     return [
         *_strides(x, d), *_strides(out, d), *tile3, *lo3, *win3,
         s, ntiles[s], ntiles[cross[0]], ntiles[cross[1]], int(pipelined),
-        n_in, THREADS, _DTYPE_CODE[x.dtype],
+        n_in, threads, _DTYPE_CODE[x.dtype],
     ]
 
 
@@ -141,7 +151,13 @@ def _raise_rc(name: str, rc: int) -> None:
     if rc == -2:
         raise RuntimeError(
             f"{name}: too many RHS, stages, taps, schedule entries or "
-            "correction terms for the kernel's fixed tables"
+            "correction terms for the kernel's fixed tables (or, for the "
+            "chain, 2^22 or more sweep rows)"
+        )
+    if rc == -3:
+        raise RuntimeError(
+            f"{name}: the threads per CTA differ from the kernel's "
+            "__launch_bounds__"
         )
     raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
@@ -161,17 +177,24 @@ _ARGTYPES = {
         _P(ctypes.c_longlong), _P(ctypes.c_int), _P(ctypes.c_float),
         _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_float),
         _P(ctypes.c_int), ctypes.c_int, ctypes.c_int, _P(ctypes.c_int),
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_void_p,
     ],
+    "sweep_chain_occupancy": [ctypes.c_int, ctypes.c_int],
 }
 
 
-def _entry(name: str):
-    """The C entry point ``<name>_launch`` of kernel ``name``, typed."""
-    fn = getattr(_build.load(name), f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[f"{name}_launch"]
+_ENTRIES: dict = {}
+
+
+def _entry(name: str, what: str = "launch"):
+    """The C entry point ``<name>_<what>`` of kernel ``name``, typed."""
+    fn = _ENTRIES.get((name, what))
+    if fn is None:
+        fn = getattr(_build.load(name), f"{name}_{what}")
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[f"{name}_{what}"]
+        _ENTRIES[name, what] = fn
     return fn
 
 
@@ -235,7 +258,8 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
         raise RuntimeError(f"sweep_apply: unsupported device {dev}")
     out = torch.empty(_out_shape(ins[0], lo_w, hi_w), dtype=ins[0].dtype,
                       device=dev)
-    geom = _geom(ins[0], out, lo_w, hi_w, tile, sweep, pipe, len(ins))
+    geom = _geom(ins[0], out, lo_w, hi_w, tile, sweep, pipe, len(ins),
+                 APPLY_THREADS)
     tap_begin = [0]
     tap_off: list[int] = []
     tap_w: list[float] = []
@@ -534,7 +558,8 @@ def sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
 
 
 def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
-    """The correction-term table ``csrc/sweep_chain.cu`` reads: per-stage
+    """The correction-term table (``csrc/sweep_chain.cu`` reads it as
+    :func:`_bc_compact` rows with :func:`_bc_classes` lists): per-stage
     row ranges ``begin`` (T + 1 prefix counts) and the rows, 12 int32
     each, in :func:`bc_menu` order:
 
@@ -580,16 +605,99 @@ def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
     return begin, rows
 
 
-def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
-                window_kind="ring", n_true=None, dom=None, in_quant=None):
-    """A fused chain of T >= 1 stages over one padded buffer (kernel 2).
+_NONE = -(2 ** 31)  # a compact row's untested role
 
-    ``stages`` carry ``offsets``, ``weights``, ``lo``/``hi``,
-    ``suffix_lo``/``suffix_hi``, ``bc``, ``dtype`` and ``quant`` per stage
-    (the port's ``_Stage``); ``n_true`` is the unpadded grid and ``dom``
-    the global coordinate of its element 0 (zeros on one card);
-    ``in_quant`` the ``(scale, zero_point)`` of an int8 input.  The
-    result is the padded output at the last stage's dtype."""
+
+def _bc_compact(rows) -> list[list[int]]:
+    """The correction-term rows as ``csrc/sweep_chain.cu`` reads them, 8
+    int32 each: ``[kind, v_sweep, v_c0, v_c1, o_s, o_c, coef_bits, 0]`` —
+    per role the tested value (the tap offset of a constant, the plane of a
+    read) or ``_NONE`` where the term tests nothing."""
+    out = []
+    for r in rows:
+        v = [_NONE] * 3
+        for t in range(r[1]):
+            v[r[2 + 2 * t]] = r[3 + 2 * t]
+        out.append([r[0], *v, r[8], r[9], r[10], 0])
+    return out
+
+
+N_CLASSES = 27  # position classes of an element: 3 per axis
+
+
+def position_class(p, lo, hi, n) -> int:
+    """A coordinate's class along one axis for a stage of halo ``(lo,
+    hi)`` on ``[0, n)``: 0 below ``lo``, 2 at or above ``n - hi``, else 1
+    (``pos_class`` in ``csrc/sweep_chain.cu``)."""
+    if p < lo:
+        return 0
+    return 2 if p >= n - hi else 1
+
+
+def _bc_classes(stages, begin, rows, sweep, n_true) -> list[int]:
+    """Per stage and position class, the rows of the correction-term table
+    (:func:`_bc_table`) that can fire there, in table order: ``T·27 + 1``
+    list bounds (stage-major, class ``9·c_s + 3·c_0 + c_1`` over the
+    roles sweep, c0, c1 of the lifted grid, :func:`position_class`
+    each), then the row indices.  A read fires only on its planes, so it
+    is listed where each plane's class is the element's; a constant fires
+    only where its tap leaves the domain, which needs a class other than 1
+    along one of its axes.  Class (1, 1, 1) lists nothing."""
+    d = len(n_true)
+    s = int(sweep) + 3 - d
+    c0, c1 = [i for i in range(3) if i != s]
+    axes = (s, c0, c1)
+    n3 = _lift(n_true, d, 1)
+    bounds: list[int] = []
+    index: list[int] = []
+    for j, st in enumerate(stages):
+        lo3, hi3 = _lift(st.lo, d, 0), _lift(st.hi, d, 0)
+
+        def cls(role, v):
+            a = axes[role]
+            return position_class(v, lo3[a], hi3[a], n3[a])
+
+        for k in range(N_CLASSES):
+            want = (k // 9, k // 3 % 3, k % 3)
+            bounds.append(len(index))
+            for q in range(begin[j], begin[j + 1]):
+                row = rows[q]
+                tests = [(row[2 + 2 * t], row[3 + 2 * t])
+                         for t in range(row[1])]
+                if row[0] == 0:
+                    fires = any(want[r] != 1 for r, _ in tests)
+                else:
+                    fires = all(cls(r, v) == want[r] for r, v in tests)
+                if fires:
+                    index.append(q)
+    bounds.append(len(index))
+    return bounds + index
+
+
+_PLANS: dict = {}
+_PLANS_MAX = 64  # launch plans kept (oldest dropped first)
+
+
+def _plan_key(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
+              n_true, dom, in_quant) -> str:
+    """Everything a chain launch's tables depend on — the buffer's shape,
+    strides, dtype and device (not its data or address), the stages and
+    the options — as one hashable string."""
+    return repr((
+        tuple(x.shape), x.stride(), str(x.dtype), str(x.device),
+        [(np.asarray(st.offsets).tolist(), [float(w) for w in st.weights],
+          st.lo, st.hi, st.suffix_lo, st.suffix_hi, st.ext, st.bc, st.dtype,
+          st.quant) for st in stages],
+        tuple(lo_w), tuple(hi_w), tuple(tile), int(sweep), bool(pipelined),
+        window_kind, n_true, dom, in_quant,
+    ))
+
+
+def _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
+                n_true, dom, in_quant) -> dict:
+    """Check a chain launch and, for a CUDA buffer, build everything the
+    kernel is handed but the buffers: the C arrays and the correction-term
+    tables on the device.  Raises on what the kernel does not take."""
     _check([x], lo_w, hi_w, tile, dtypes=tuple(_NAMES.values()))
     T = len(stages)
     if not 1 <= T <= _MAX_STAGES:
@@ -598,6 +706,10 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
         )
     if window_kind not in ("ring", "trapezoid"):
         raise ValueError(f"unknown window_kind {window_kind!r}")
+    if in_quant is not None and x.dtype != torch.int8:
+        raise TypeError(
+            f"in_quant dequantizes int8 codes; the input is {x.dtype}"
+        )
     d = x.ndim
     pipe = _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep)
     halos = _stage_halos(stages)
@@ -634,14 +746,11 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
             f"the chain's boundary conditions need {len(bc_rows)} "
             f"correction terms; the kernel holds {_MAX_BC}"
         )
-    if x.device.type == "cpu":
-        return sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep,
-                                 pipelined, window_kind, n_true, dom,
-                                 in_quant)
+    plan = {"n_true": n_true}
     if x.device.type != "cuda":
-        raise RuntimeError(f"sweep_chain: unsupported device {x.device}")
-    out = torch.empty(n_pad, dtype=out_dtype, device=x.device)
-    geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, T)
+        return plan
+    out = torch.empty(n_pad, dtype=out_dtype, device="meta")
+    geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, T, CHAIN_THREADS)
     geom += list(_lift(n_true, d, 1))
     geom += list(_lift(dom or (0,) * d, d, 0))
     geom += [
@@ -668,25 +777,97 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
         tap_begin.append(len(tap_w))
     stage_q += list(_quant_pair(in_quant or (1.0, 0)))
     sched = [v for entry in warm + steady for v in entry]
-    bc = torch.tensor(bc_rows or [[0] * _BC_ROW], dtype=torch.int32,
-                      device=x.device)
-    fn = _entry("sweep_chain")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(
+    bc_rows = bc_rows or [[0] * _BC_ROW]
+    bc_cls = _bc_classes(stages, bc_begin, bc_rows, sweep, n_true)
+    # The kernel copies the tables to shared memory when they fit there.
+    bc_bytes = _align16(len(bc_rows) * 32) + _align16(4 * len(bc_cls))
+    in_smem = bool(bc_begin[-1]) and smem + bc_bytes <= SMEM_BLOCK_LIMIT
+    geom += [len(bc_rows), len(bc_cls), int(in_smem)]
+    plan.update(
+        out_shape=n_pad, out_dtype=out_dtype,
+        smem=smem + (bc_bytes if in_smem else 0),
+        arrays=(
             _c(ctypes.c_longlong, geom), _c(ctypes.c_int, stage_geom),
             _c(ctypes.c_float, stage_q), _c(ctypes.c_int, tap_begin),
             _c(ctypes.c_int, tap_off), _c(ctypes.c_float, tap_w),
             _c(ctypes.c_int, sched), len(warm), len(steady),
-            _c(ctypes.c_int, bc_begin), bc.data_ptr(), x.data_ptr(),
-            out.data_ptr(), smem, stream,
-        )
+            _c(ctypes.c_int, bc_begin),
+        ),
+        bc=torch.tensor(_bc_compact(bc_rows), dtype=torch.int32,
+                        device=x.device),
+        bc_cls=torch.tensor(bc_cls, dtype=torch.int32, device=x.device),
+    )
+    return plan
+
+
+def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
+                window_kind="ring", n_true=None, dom=None, in_quant=None):
+    """A fused chain of T >= 1 stages over one padded buffer (kernel 2).
+
+    ``stages`` carry ``offsets``, ``weights``, ``lo``/``hi``,
+    ``suffix_lo``/``suffix_hi``, ``bc``, ``dtype`` and ``quant`` per stage
+    (the port's ``_Stage``); ``n_true`` is the unpadded grid and ``dom``
+    the global coordinate of its element 0 (zeros on one card);
+    ``in_quant`` the ``(scale, zero_point)`` of an int8 input.  The
+    result is the padded output at the last stage's dtype.
+
+    On the card a launch's tables are built once per geometry and kept
+    (:func:`_chain_plan`): a repeated launch allocates its output and
+    launches."""
+    args = (x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
+            n_true, dom, in_quant)
+    if x.device.type == "cuda":
+        key = _plan_key(*args)
+        plan = _PLANS.get(key)
+        if plan is None:
+            plan = _chain_plan(*args)
+            if len(_PLANS) >= _PLANS_MAX:
+                _PLANS.pop(next(iter(_PLANS)))
+            _PLANS[key] = plan
+    else:
+        plan = _chain_plan(*args)
+        if x.device.type != "cpu":
+            raise RuntimeError(f"sweep_chain: unsupported device {x.device}")
+        return sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep,
+                                 pipelined, window_kind, plan["n_true"], dom,
+                                 in_quant)
+    out = torch.empty(plan["out_shape"], dtype=plan["out_dtype"],
+                      device=x.device)
+    fn = _entry("sweep_chain")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(*plan["arrays"], plan["bc"].data_ptr(),
+                plan["bc_cls"].data_ptr(), x.data_ptr(), out.data_ptr(),
+                plan["smem"], stream)
     _raise_rc("sweep_chain", rc)
     sweep_chain.launches += 1
     return out
 
 
 sweep_chain.launches = 0
+
+
+def chain_smem_bytes(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
+                     window_kind="ring", n_true=None, dom=None,
+                     in_quant=None) -> int:
+    """Dynamic shared memory of :func:`sweep_chain`'s launch on this CUDA
+    buffer: :func:`~repro_torch.core.tiling.sweep_smem_bytes` plus the
+    correction-term tables where the kernel copies them in."""
+    return _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined,
+                       window_kind, n_true, dom, in_quant)["smem"]
+
+
+def chain_occupancy(in_dtype, smem_bytes) -> int:
+    """CTAs of the chain kernel resident on one SM of the current card for
+    this input dtype and this much dynamic shared memory, at
+    :data:`CHAIN_THREADS` threads (CUDA's occupancy query,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``).
+    Needs the card; launches nothing."""
+    n = _entry("sweep_chain", "occupancy")(
+        _DTYPE_CODE[in_dtype], int(smem_bytes))
+    if n < 0:
+        raise RuntimeError(f"sweep_chain_occupancy: cudaError {-n}")
+    return n
 
 
 def chain_points(stages, tile, sweep, window_kind, out_shape) -> list[int]:

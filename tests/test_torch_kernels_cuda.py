@@ -221,6 +221,91 @@ def test_sweep_chain_conditions_equal_plain(dev, case, config, window_kind):
     assert _same_bits(k, p)
 
 
+# -- the register-blocked, 16-byte-copy design of sweep_chain.cu ---------------
+
+_CHAIN3 = (
+    _spec(star_stencil(3, 1), np.linspace(0.3, -0.2, 7)),
+    _spec([[-3, 0, 0], [-1, 0, 0], [0, 0, 0], [0, 1, 0], [0, 0, -1]],
+          [0.1, 0.2, -0.3, 0.25, 0.15]),
+    _spec(star_stencil(3, 2), np.linspace(-0.4, 0.5, 13)),
+)
+
+
+@pytest.mark.parametrize("window_kind", ["ring", "trapezoid"])
+@pytest.mark.parametrize("t_s", [1, 3, 5, 6])
+def test_chain_rows_off_the_register_block_equal_plain(dev, t_s,
+                                                       window_kind):
+    """Sweep tiles that are no multiple of the kernel's 4-row register
+    block: the steady entries and the ring warm-up's odd chunks leave a
+    thread fewer rows than its block holds."""
+    shape, tile = (13, 13, 15), (t_s, 8, 8)
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, _CHAIN3[:1], _CHAIN3, device=dev, seed=t_s)
+    args = (ins[0], stages, lo_w, hi_w, tile, 0, True, window_kind, shape)
+    k = sweep.sweep_chain(*args)
+    p = sweep.sweep_chain_plain(*args)
+    torch.cuda.synchronize()
+    assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("offset", [1, 5])
+@pytest.mark.parametrize("config", ["float32", "bfloat16", "in_quant"])
+def test_chain_misaligned_input_equals_plain(dev, config, offset):
+    """An input view that starts ``offset`` elements into its allocation,
+    with an odd minor extent: the 16-byte copies' unaligned ends (or, where
+    source and shared rows differ in alignment, the element path)."""
+    shape, tile = (12, 13, 15), (4, 8, 8)
+    kw = CHAIN_CONFIGS["in_quant"] if config == "in_quant" else {}
+    dtype = torch.bfloat16 if config == "bfloat16" else torch.float32
+    stages_w = _symmetric_chain(3, 2)
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, stages_w[:1], stages_w, dtype=dtype, device=dev,
+        seed=offset, **kw)
+    x = ins[0]
+    flat = torch.empty(x.numel() + offset, dtype=x.dtype, device=dev)
+    view = flat[offset:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    iq = kw.get("in_quant")
+    k = sweep.sweep_chain(view, stages, lo_w, hi_w, tile, 0, True, "ring",
+                          shape, in_quant=iq)
+    p = sweep.sweep_chain_plain(x, stages, lo_w, hi_w, tile, 0, True,
+                                "ring", shape, in_quant=iq)
+    torch.cuda.synchronize()
+    assert _same_bits(k, p)
+
+
+@pytest.mark.parametrize("dom", [(0, 0, 0), (3, -5, 7)])
+@pytest.mark.parametrize("kind", ["neumann", "reflect", "robin"])
+def test_chain_face_columns_equal_plain(dev, kind, dom):
+    """A grid of 5 x 3 columns: interior columns (no face test), columns
+    touching exactly one face, corner columns, and steps away from and at
+    the sweep faces; with ``dom`` moving the faces in global coordinates."""
+    shape, tile = (20, 40, 48), (4, 8, 16)
+    value = (0.7, 0.3) if kind == "robin" else 0.0
+    stages_w = _symmetric_chain(3, 2)
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, stages_w[:1], stages_w, device=dev,
+        bcs_w=((kind, value),) * 2)
+    for wk in ("ring", "trapezoid"):
+        args = (ins[0], stages, lo_w, hi_w, tile, 0, True, wk, shape, dom)
+        k = sweep.sweep_chain(*args)
+        p = sweep.sweep_chain_plain(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(k, p), wk
+
+
+def test_chain_occupancy_at_the_smoke_tile(dev):
+    """At chain_T3_512's tile, one CTA of CHAIN_THREADS threads fits an SM:
+    at least 16 resident warps."""
+    halos = [[(2, 2)] * 3] * 3
+    smem = sweep_smem_bytes((4, 16, 32), 0, 4, stage_halos=halos,
+                            pipelined=True)
+    n = sweep.chain_occupancy(torch.float32, smem)
+    assert n >= 1
+    assert n * sweep.CHAIN_THREADS // 32 >= 16
+
+
 @pytest.mark.parametrize("kind", ["dirichlet", "neumann", "reflect", "robin",
                                   "periodic"])
 @pytest.mark.parametrize("case", range(len(CASES)))

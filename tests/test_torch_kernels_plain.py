@@ -265,6 +265,7 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
         rounding = sweep._stage_rounding(stages, x[0].dtype)
         bc_begin, bc_rows = sweep._bc_table(stages, tile, lo_w, hi_w,
                                             sweep_axis, n_true)
+        listed = _class_lists(stages, bc_begin, bc_rows, sweep_axis, n_true)
         periodic = any(stg.bc is not None and stg.bc[0] == "periodic"
                        for stg in stages)
         st3 = []
@@ -333,16 +334,20 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                     p2 = np.arange(ext[2]) + b1 - sfx[2]
                     pos = (np.full((ext[1], ext[2]), g), p1[:, None]
                            + 0 * p2[None, :], 0 * p1[:, None] + p2[None, :])
+                    face = any(
+                        _band(ax, lo_j[a], hi_j[a], n_true3[a]) for a, ax in
+                        enumerate((np.arange(r0, r1) + k * t_s, p1, p2)))
                     if stg.bc is not None and stg.bc[0] != "periodic":
                         add = np.zeros_like(acc)
-                        near = np.zeros(acc.shape, bool)
-                        for a in range(3):
-                            near |= (pos[a] < lo_j[a]) | (
-                                pos[a] >= n_true3[a] - hi_j[a])
+                        # Each element scans its position class's list.
+                        cls = sum(
+                            m * np.where(pos[a] < lo_j[a], 0, np.where(
+                                pos[a] >= n_true3[a] - hi_j[a], 2, 1))
+                            for a, m in enumerate((9, 3, 1)))
                         flat = ((np.arange(ext[1])[:, None] + lo_j[1])
                                 * (win[2] if j == 0 else st3[j - 1][2][2])
                                 + np.arange(ext[2])[None, :] + lo_j[2])
-                        for row in rows_j:
+                        for qi, row in enumerate(rows_j):
                             kind, n = row[0], row[1]
                             tests = [(row[2 + 2 * t], row[3 + 2 * t])
                                      for t in range(n)]
@@ -360,7 +365,7 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                                     hit &= pos[a] == plane
                                 src = src_row(g + row[8]).reshape(-1)
                                 term = coef * src[flat + row[9]]
-                            hit &= near
+                            hit &= listed[j][cls, qi] & face
                             add = np.where(hit, add + term, add)
                         acc = acc + add
                     if j == len(stages) - 1:
@@ -387,6 +392,28 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                                             [3 - d:]))
 
 
+def _band(coords, lo, hi, n):
+    """Do the coordinates reach into a stage's face band along one axis?"""
+    return bool((np.min(coords) < lo) or (np.max(coords) >= n - hi))
+
+
+def _class_lists(stages, begin, rows, sweep_axis, n_true):
+    """Per stage, a (27, rows of the stage) bool matrix: which table rows
+    the class lists of ``sweep._bc_classes`` name for each class."""
+    tab = sweep._bc_classes(stages, begin, rows, sweep_axis, n_true)
+    nb = len(stages) * sweep.N_CLASSES + 1
+    out = []
+    for j in range(len(stages)):
+        m = np.zeros((sweep.N_CLASSES, begin[j + 1] - begin[j]), bool)
+        for k in range(sweep.N_CLASSES):
+            b = tab[j * sweep.N_CLASSES + k]
+            e = tab[j * sweep.N_CLASSES + k + 1]
+            for q in tab[nb + b:nb + e]:
+                m[k, q - begin[j]] = True
+        out.append(m)
+    return out
+
+
 EMU_CASES = [
     # shape, tile, sweep_axis
     ((12, 13, 14), (4, 8, 8), 0),
@@ -394,6 +421,9 @@ EMU_CASES = [
     ((12, 13, 14), (8, 8, 4), 2),
     ((41, 53), (16, 16), 0),
     ((70,), (8,), 0),
+    # a sweep tile that is no multiple of the chain's 4-row register
+    # block, an odd minor extent
+    ((13, 13, 15), (5, 8, 8), 0),
 ]
 
 
@@ -463,7 +493,8 @@ def test_chain_kernel_with_boundaries_and_dtypes_equals_plain(case, config):
 def test_bc_table_equals_plain_bc_terms(d, kind):
     """The host-built correction-term table, evaluated in numpy over a
     one-tile window (flat cross offsets, roles, planes, coefficient bits),
-    equals the plain ``_bc_terms`` sum of every boundary kind."""
+    equals the plain ``_bc_terms`` sum of every boundary kind, both by a
+    scan of the whole table and by each element's class list."""
     value = {"dirichlet": -0.75, "robin": (0.7, 0.3)}.get(kind, 0.0)
     shape = (9, 10, 11)[:d]
     offs = BOX27[:, 3 - d:] if d == 3 else star_stencil(d, 2)
@@ -484,9 +515,16 @@ def test_bc_table_equals_plain_bc_terms(d, kind):
     lo3 = np.array(_lift3(d, lo_w, 0))[list(perm)]
     n3 = tuple(np.array(_lift3(d, shape, 1))[list(perm)])
     idx = np.indices(n3)
+    (listed,) = _class_lists(stages, begin, rows, 0, shape)
+    lo_j = np.array(_lift3(d, stg.lo, 0))[list(perm)]
+    hi_j = np.array(_lift3(d, stg.hi, 0))[list(perm)]
+    cls = sum(m * np.where(idx[a] < lo_j[a], 0,
+                           np.where(idx[a] >= n3[a] - hi_j[a], 2, 1))
+              for a, m in enumerate((9, 3, 1)))
     got = np.zeros(n3, np.float32)
+    by_class = np.zeros(n3, np.float32)
     w1 = X.shape[2]
-    for row in rows:
+    for q, row in enumerate(rows):
         tests = [(row[2 + 2 * t], row[3 + 2 * t]) for t in range(row[1])]
         coef = np.array(row[10], np.int32).view(np.float32)
         if row[0] == 0:
@@ -503,8 +541,101 @@ def test_bc_table_equals_plain_bc_terms(d, kind):
             term = coef * np.take_along_axis(
                 plane_src, flat[..., None], -1)[..., 0]
         got = np.where(hit, got + term, got)
-    got = got.transpose(np.argsort(perm)).reshape(shape)
-    assert np.array_equal(got, want)
+        by_class = np.where(hit & listed[cls, q], by_class + term, by_class)
+    for sums in (got, by_class):
+        sums = sums.transpose(np.argsort(perm)).reshape(shape)
+        assert np.array_equal(sums, want)
+
+
+def _term_fires(row, p, n3):
+    """The kernel's firing test of one table row at global position ``p``
+    (sweep, c0, c1 roles) of a grid ``n3``."""
+    tests = [(row[2 + 2 * t], row[3 + 2 * t]) for t in range(row[1])]
+    if row[0] == 0:
+        return any(not 0 <= p[r] + off < n3[r] for r, off in tests)
+    return all(p[r] == v for r, v in tests)
+
+
+def _compact_fires(row, p, n3):
+    """The kernel's test of a compact row (``sweep._bc_compact``)."""
+    none = sweep._NONE
+    if row[0] == 0:
+        return any(v != none and not 0 <= p[r] + v < n3[r]
+                   for r, v in enumerate(row[1:4]))
+    return all(v == none or p[r] == v for r, v in enumerate(row[1:4]))
+
+
+@pytest.mark.parametrize("kind", ["dirichlet", "neumann", "reflect", "robin"])
+@pytest.mark.parametrize("d", [1, 2, 3])
+def test_bc_class_lists_equal_full_table_scan(d, kind):
+    """For every position of a small grid and its suffix margin (outside
+    the domain too), the terms of the element's class list that fire are
+    exactly the terms of the whole table that fire, in the same order, so
+    the two sums are the same f32 sum; class (1, 1, 1) lists nothing; and
+    the compact rows the kernel reads fire where the full rows do."""
+    value = {"dirichlet": -0.75, "robin": (0.7, 0.3)}.get(kind, 0.0)
+    shape = (7, 8, 9)[:d]
+    offs = np.unique(BOX27[:, 3 - d:] if d == 3 else star_stencil(d, 2),
+                     axis=0)
+    w = np.linspace(-0.3, 0.4, len(offs)).tolist()
+    stages_w = (_spec(offs, w), _spec(star_stencil(d, 1),
+                                      np.linspace(0.2, -0.1, 2 * d + 1)))
+    _, _, _, _, stages, lo_w, hi_w = _launch(
+        shape, shape, stages_w[:1], stages_w,
+        bcs_w=((kind, value), (kind, value)))
+    begin, rows = sweep._bc_table(stages, shape, lo_w, hi_w, 0, shape)
+    tab = sweep._bc_classes(stages, begin, rows, 0, shape)
+    compact = sweep._bc_compact(rows)
+    nb = len(stages) * sweep.N_CLASSES + 1
+    assert len(tab) == nb + tab[nb - 1]
+    perm = _axes(d, 0)
+    n3 = tuple(int(v) for v in np.array(_lift3(d, shape, 1))[list(perm)])
+    rng = np.random.default_rng(d)
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    for j, stg in enumerate(stages):
+        lo3 = np.array(_lift3(d, stg.lo, 0))[list(perm)]
+        hi3 = np.array(_lift3(d, stg.hi, 0))[list(perm)]
+        sfx = np.array(_lift3(d, stg.suffix_lo, 0))[list(perm)]
+        ranges = [range(-int(sfx[a]) - 1, n3[a] + int(sfx[a]) + 1)
+                  if n3[a] > 1 else range(1) for a in range(3)]
+        mid = (1, 1, 1)
+        k_mid = 9 * mid[0] + 3 * mid[1] + mid[2]
+        assert tab[j * 27 + k_mid] == tab[j * 27 + k_mid + 1]
+        for p in itertools.product(*ranges):
+            k = sum(m * sweep.position_class(p[a], lo3[a], hi3[a], n3[a])
+                    for a, m in enumerate((9, 3, 1)))
+            lst = tab[nb + tab[j * 27 + k]:nb + tab[j * 27 + k + 1]]
+            assert lst == sorted(lst)
+            assert all(begin[j] <= q < begin[j + 1] for q in lst)
+            full = [q for q in range(begin[j], begin[j + 1])
+                    if _term_fires(rows[q], p, n3)]
+            assert [q for q in range(begin[j], begin[j + 1])
+                    if _compact_fires(compact[q], p, n3)] == full
+            assert [q for q in lst if _term_fires(rows[q], p, n3)] == full
+            a = b = np.float32(0)
+            for q in full:
+                a = a + vals[q]
+            for q in lst:
+                if _term_fires(rows[q], p, n3):
+                    b = b + vals[q]
+            assert a == b
+
+
+def test_thread_constants_match_the_kernels_launch_bounds():
+    """Each sweep kernel's threads per CTA, as the wrapper passes it,
+    is the count its source declares in ``__launch_bounds__``."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(sweep.__file__).resolve().parent.parent / "csrc"
+    apply_src = (csrc / "sweep_apply.cu").read_text()
+    chain_src = (csrc / "sweep_chain.cu").read_text()
+    assert re.findall(r"__launch_bounds__\((\d+)\)", apply_src) == [
+        str(sweep.APPLY_THREADS)]
+    assert re.findall(r"__launch_bounds__\((\w+), 1\)", chain_src) == [
+        "kThreads"]
+    assert re.search(r"constexpr int kThreads = (\d+);", chain_src).group(
+        1) == str(sweep.CHAIN_THREADS)
 
 
 @pytest.mark.parametrize("T", [2, 3, 5, 8])
