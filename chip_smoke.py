@@ -17,6 +17,13 @@ points at full size:
   ``multi_stencil_pallas``;
 * ``chain_T3_512``      — ``stencil_iterate(time_steps=3)`` at 512³ f32,
   ring and trapezoid frontiers;
+* ``chain_T3_512_sweep1`` — the same chain swept along axis 1 with the
+  tile's roles kept (``tile=(16, 4, 32)``): the 13-point star's taps are
+  then not in the order the kernel compiles, so its stages run the
+  table-driven tap loop, timed against ``chain_T3_512``'s compiled ones;
+* ``chain_bf16_T3_512`` — the chain on a bf16 grid (bf16 window, frontiers
+  and result; the first stage reads the bf16 window on the table-driven
+  loop);
 * ``chain_ragged``      — a two-stage damped-Jacobi program on a ragged
   250×253×258 grid, given as program JSON through
   ``convert.from_reference`` and ``ir.run_program``;
@@ -52,7 +59,11 @@ with TF32 off, a yardstick the port never calls) with CUDA events.  Each
 chain phase also says why the chain kernel runs as it does: threads and
 shared bytes per CTA, CTAs and warps resident per SM (the CUDA occupancy
 query) and ptxas's register and spill line; ``chain_T3_512`` prints the
-unfused call time over the fused one.  It prints one JSON line per phase, a
+unfused call time over the fused one.  Beside each chain launch's ``ms``
+(one wrapper call between CUDA events, host preparation included) it
+prints ``device_ms`` (the kernel alone, from ``torch.profiler``) and
+``cold_ms`` (one call with the wrapper's table cache emptied, so the
+host builds the launch tables).  It prints one JSON line per phase, a
 ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing a result.
@@ -152,6 +163,48 @@ def main() -> None:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return statistics.median(times)
+
+    def device_ms(fn, reps=5):
+        """Median device time of the chain kernel alone over ``reps`` calls
+        of ``fn``, from ``torch.profiler``'s CUDA events (host preparation
+        and launch overhead excluded)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and "sweep_chain_kernel" in e.name]
+        if not ts:
+            return "not measured: no device events recorded"
+        return statistics.median(ts)
+
+    def cold_ms(fn) -> dict:
+        """One call of ``fn`` with the chain wrapper's table cache empty:
+        CUDA events around it, and the host clock to its return."""
+        sweep._PLANS.clear()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        host = (time.perf_counter() - t0) * 1e3
+        b.synchronize()
+        return {"cold_ms": a.elapsed_time(b), "cold_host_ms": host}
+
+    def chain_smem(x, stages, tile, sweep_axis, wk="ring") -> int:
+        """The chain launch's dynamic shared memory (its grids all take
+        several sweep steps with a halo, so the window is pipelined)."""
+        return sweep_smem_bytes(
+            tile, sweep_axis, x.element_size(), pipelined=True,
+            stage_halos=[list(zip(s_.lo, s_.hi)) for s_ in stages],
+            window_kind=wk)
 
     def bits_equal(a, b) -> bool:
         if a.shape != b.shape or a.dtype != b.dtype:
@@ -409,9 +462,10 @@ def main() -> None:
         times[wk] = time_ms(lambda: sweep.sweep_chain(*cargs))
         del k_out
     assert exact_all, err_all
-    halos = [list(zip(s_.lo, s_.hi)) for s_ in stages]
-    smem = {wk: sweep_smem_bytes(tile, 0, 4, stage_halos=halos,
-                                 pipelined=True, window_kind=wk)
+    cargs = (ins[0], stages, lo_w, hi_w, tile, 0, True, "ring", shape)
+    dev_ms = device_ms(lambda: sweep.sweep_chain(*cargs))
+    cold = cold_ms(lambda: sweep.sweep_chain(*cargs))
+    smem = {wk: chain_smem(ins[0], stages, tile, 0, wk)
             for wk in ("ring", "trapezoid")}
     plain_ms = time_ms(lambda: sweep.sweep_chain_plain(
         ins[0], stages, lo_w, hi_w, tile, 0, True, "ring", shape), reps=5)
@@ -436,8 +490,8 @@ def main() -> None:
         "sweep_axis": 0, "time_steps": 3, "launches": launched,
         "ring_equals_trapezoid": ring_eq_trap, "exact_vs_plain": exact_all,
         "max_abs_err": err_all, "oracle_max_abs_err": oracle_err,
-        "ms": times["ring"], "ms_by_window": times, "smem_bytes": smem,
-        "plain_ms": plain_ms, "call_ms": call_ms,
+        "ms": times["ring"], "ms_by_window": times, "device_ms": dev_ms,
+        **cold, "smem_bytes": smem, "plain_ms": plain_ms, "call_ms": call_ms,
         "unfused_call_ms": unfused_ms, "unfused_tile": [8, 16, 32],
         "unfused_over_fused": unfused_ms / call_ms,
         **chain_info(torch.float32, smem["ring"]),
@@ -495,6 +549,8 @@ def main() -> None:
     err = max_err(k_out, p_out)
     assert exact, err
     kernel_ms = time_ms(lambda: sweep.sweep_chain(*cargs))
+    dev_ms = device_ms(lambda: sweep.sweep_chain(*cargs))
+    cold = cold_ms(lambda: sweep.sweep_chain(*cargs))
     plain_ms = time_ms(lambda: sweep.sweep_chain_plain(*cargs))
     pts = sweep.chain_points(stages, tile, 0, "ring", p_out.shape)
     computed = sum(2 * len(s_.weights) * n for s_, n in zip(stages, pts))
@@ -502,9 +558,10 @@ def main() -> None:
     phase = {
         "phase": "chain_ragged", "shape": list(shape), "tile": list(tile),
         "sweep_axis": 0, "stages": 2, "launches": launched,
-        **chain_info(torch.float32, sweep.chain_smem_bytes(*cargs)),
+        **chain_info(torch.float32, chain_smem(ins[0], stages, tile, 0)),
         "exact_vs_plain": exact, "max_abs_err": err,
         "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
+        "device_ms": dev_ms, **cold,
         "plain_ms": plain_ms, "library_ms": None,
         **bound(shape, 4, 4, 1, [len(s_.weights) for s_ in stages]),
         "bytes_moved": moved, "flops_computed": computed, "card": card_line,
@@ -558,7 +615,7 @@ def main() -> None:
 
     def chain_phase(name, u, tile, main_call, stages_sp, bcs=None,
                     dtypes=None, quants=None, library=None, windows=None,
-                    extra=None, without=None):
+                    extra=None, without=None, sweep_axis=0):
         """Drive ``main_call(window_kind)`` (the user's entry point), check
         it against the iterated oracle within its band and ring against
         trapezoid, then the kernel against its plain version on the launch
@@ -597,11 +654,12 @@ def main() -> None:
             dtypes_w=eff if any(dt != "float32" for dt in eff) else None,
             quants_w=quants if any(q is not None for q in quants) else None,
         )
-        p_out = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, 0,
+        sw = sweep_axis
+        p_out = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, sw,
                                         True, windows[0], shape)
         times, exact, err = {}, True, 0.0
         for wk in windows:
-            cargs = (ins[0], stages, lo_w, hi_w, tile, 0, True, wk, shape)
+            cargs = (ins[0], stages, lo_w, hi_w, tile, sw, True, wk, shape)
             k_out = sweep.sweep_chain(*cargs)
             torch.cuda.synchronize()
             exact &= bits_equal(k_out, p_out)
@@ -609,28 +667,33 @@ def main() -> None:
             times[wk] = time_ms(lambda: sweep.sweep_chain(*cargs))
             del k_out
         assert exact, (name, err)
-        plain_ms = time_ms(lambda: sweep.sweep_chain_plain(
-            ins[0], stages, lo_w, hi_w, tile, 0, True, windows[0], shape),
-            reps=3, warmup=1)
+        cargs = (ins[0], stages, lo_w, hi_w, tile, sw, True, windows[0],
+                 shape)
+        dev_ms = device_ms(lambda: sweep.sweep_chain(*cargs))
+        cold = cold_ms(lambda: sweep.sweep_chain(*cargs))
+        plain_ms = time_ms(lambda: sweep.sweep_chain_plain(*cargs), reps=3,
+                           warmup=1)
         without_ms = None
         if without is not None:
             field = {"boundary": "bc", "quantization": "quant"}[without]
             bare = tuple(s_._replace(**{field: None}) for s_ in stages)
             if without == "quantization":
                 bare = tuple(s_._replace(dtype=None) for s_ in bare)
-            without_ms = time_ms(lambda: sweep.sweep_chain(
-                ins[0], bare, lo_w, hi_w, tile, 0, True, windows[0], shape))
+            bargs = (ins[0], bare, lo_w, hi_w, tile, sw, True, windows[0],
+                     shape)
+            without_ms = time_ms(lambda: sweep.sweep_chain(*bargs))
+            without_dev = device_ms(lambda: sweep.sweep_chain(*bargs))
         call_ms = time_ms(lambda: main_call(windows[0]), reps=5)
         lib_ms = lib_diff = None
         if library is not None:
             lib_fn, lib_check = library
             lib_ms = time_ms(lib_fn)
             lib_diff = lib_check()
-        pts = sweep.chain_points(stages, tile, 0, windows[0], p_out.shape)
+        pts = sweep.chain_points(stages, tile, sw, windows[0], p_out.shape)
         computed = sum(2 * len(s_.weights) * n for s_, n in zip(stages, pts))
         phase = {
             "phase": name, "shape": list(shape), "tile": list(tile),
-            "sweep_axis": 0, "stages": T,
+            "sweep_axis": sw, "stages": T,
             "boundaries": [list(b) if b else None for b in bcs],
             "dtypes": list(eff), "quants": [list(q) if q else None
                                             for q in quants],
@@ -638,14 +701,19 @@ def main() -> None:
             "exact_vs_plain": exact, "max_abs_err": err,
             "oracle_max_abs_err": oracle_err, "oracle_band": band,
             "ms": times[windows[0]], "ms_by_window": times,
+            "device_ms": dev_ms, **cold,
             "plain_ms": plain_ms, "call_ms": call_ms, "library_ms": lib_ms,
             "library_max_abs_diff": lib_diff,
-            **({f"ms_without_{without}": without_ms} if without else {}),
+            **({f"ms_without_{without}": without_ms,
+                f"device_ms_without_{without}": without_dev}
+               if without else {}),
             **({"boundary_share": (times[windows[0]] - without_ms)
                 / times[windows[0]]} if without == "boundary" else {}),
-            **chain_info(ins[0].dtype, sweep.chain_smem_bytes(
-                ins[0], stages, lo_w, hi_w, tile, 0, True, windows[0],
-                shape)),
+            **({"boundary_share_device": (dev_ms - without_dev) / dev_ms}
+               if without == "boundary" and isinstance(dev_ms, float)
+               and isinstance(without_dev, float) else {}),
+            **chain_info(ins[0].dtype, chain_smem(ins[0], stages, tile, sw,
+                                                  windows[0])),
             **bound(shape, u.element_size(), p_out.element_size(), 1,
                     [len(s_.weights) for s_ in stages]),
             "bytes_moved": ins[0].numel() * ins[0].element_size()
@@ -672,6 +740,32 @@ def main() -> None:
                                          window_kind=wk)
 
     big = (512, 512, 512)
+
+    # chain_T3_512_sweep1: chain_T3_512's chain and tile roles, swept along
+    # axis 1 (the table-driven tap loop), and chain_bf16_T3_512: the same
+    # chain on a bf16 grid.
+    gen.manual_seed(2)
+    u = torch.randn(big, generator=gen, device=dev)
+    phase = chain_phase(
+        "chain_T3_512_sweep1", u, (16, 4, 32),
+        lambda wk: st.stencil_iterate(u, offs13, w13, 3, tile=(16, 4, 32),
+                                      sweep_axis=1, window_kind=wk),
+        [(offs13, w13)] * 3, windows=("ring",), sweep_axis=1,
+        extra={"compare_with": "chain_T3_512 (compiled star at sweep 0)"})
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    ub = u.to(torch.bfloat16)
+    del u
+    torch.cuda.empty_cache()
+    phase = chain_phase(
+        "chain_bf16_T3_512", ub, (4, 16, 32),
+        lambda wk: st.stencil_iterate(ub, offs13, w13, 3, tile=(4, 16, 32),
+                                      sweep_axis=0, window_kind=wk),
+        [(offs13, w13)] * 3, dtypes=("bfloat16",) * 3, windows=("ring",))
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del ub
+    torch.cuda.empty_cache()
 
     # bc_neumann_apply_512: one application under neumann, T = 1 chain form.
     gen.manual_seed(4)
@@ -771,10 +865,12 @@ def main() -> None:
         "launches": split_launched, "split_equals_fused": split_equals_fused,
         "exact_vs_plain": iq_exact, "max_abs_err": max_err(k_out, p_out),
         "ms": time_ms(lambda: sweep.sweep_chain(*cargs)),
+        "device_ms": device_ms(lambda: sweep.sweep_chain(*cargs)),
+        **cold_ms(lambda: sweep.sweep_chain(*cargs)),
         "plain_ms": time_ms(lambda: sweep.sweep_chain_plain(*cargs), reps=3,
                             warmup=1),
         **bound(big, 1, 4, 1, [len(w13)]),
-        **chain_info(torch.int8, sweep.chain_smem_bytes(*cargs)),
+        **chain_info(torch.int8, chain_smem(ins[0], stages, tile, 0)),
     }
     del ins, k_out, p_out, cargs, codes
     torch.cuda.empty_cache()

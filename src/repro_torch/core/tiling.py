@@ -8,8 +8,7 @@ search) stays out: the Hopper planner is a slice of its own.
 
 ``sweep_smem_bytes`` is new: it reckons one CTA's dynamic shared memory
 from the same geometry, laid out exactly as ``csrc/sweep_apply.cu`` and
-``csrc/sweep_chain.cu`` carve it (the chain kernel adds its boundary
-tables after it where they fit: ``kernels/sweep.py::chain_smem_bytes``).
+``csrc/sweep_chain.cu`` carve it.
 """
 
 from __future__ import annotations

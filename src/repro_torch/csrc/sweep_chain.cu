@@ -74,13 +74,18 @@
 // `acc + bc_terms(...)` does.  The host also lists, per stage and per
 // position class (along each axis: below the stage's lo, inside, at or
 // above n - hi; 27 classes), the terms that can fire there, in table
-// order.  An entry whose rows and columns all lie inside (decided once per
-// entry, uniformly over the block) adds zero and reads no table; in a face
-// entry a thread's rows are grouped by class and each group scans its
-// class's list once.  The kernel reads compact rows (8 ints) and the
-// lists, copied to shared memory at the start where they fit.  Periodic
-// needs no terms: the host wraps the ghost cells and the masks keep each
-// stage's suffix margin [-suffix_lo, n + suffix_hi).
+// order.  Each entry splits its cross positions, uniformly over the block,
+// into the interior rectangle (class 1 along both cross axes: no term can
+// fire there but along the sweep) and the frame around it.  Frame items
+// come first, so the lanes that add terms fill whole warps instead of
+// holding back the lanes of their warp that add none; interior items read
+// no table unless the entry's rows reach a sweep face, and an entry with
+// neither runs a loop without boundary code.  A thread's rows are grouped
+// by class and each group applies its class's rows, stored class by class
+// in device memory (two loaded at once) with the class bounds among the
+// kernel's parameters.  Periodic needs no terms: the host wraps the ghost
+// cells and the masks keep each stage's suffix margin [-suffix_lo, n +
+// suffix_hi).
 //
 // Storage dtypes: frontiers stay f32 in shared memory whatever the stage
 // dtype, holding the value already rounded as the reference stores it: a
@@ -134,10 +139,7 @@ struct Band {
 struct ChainParams {
   const void* in;
   void* out;
-  const int4* bc;      // correction terms, compact: 2 int4 (8 ints) a row
-  const int* bc_cls;   // T * 27 + 1 class list bounds, then the row indices
-  int bc_rows, cls_n;  // rows of bc, ints of bc_cls
-  int bc_smem, cls_smem;  // their byte offsets in shared memory, or -1
+  const int4* bc;      // each class's terms in order: 2 int4 (8 ints) a row
   long long in_stride[3];
   long long out_stride[3];
   int tile[3];
@@ -172,9 +174,12 @@ struct ChainParams {
   // one 8-byte read of the parameter bank a tap.
   int2 tap[kMaxTaps];
   short sched[kMaxSched][3];  // (stage, r0, r1), rows relative to k * t_s
+  // Bounds of each (stage, class)'s rows in bc: kept here, not in device
+  // memory, so a face element's first row load waits on no other load.
+  unsigned short cls[kMaxStages * kClasses + 1];
 };
-// The classic kernel-parameter limit; the correction terms and their class
-// lists live in device memory so that the struct stays below it.
+// The classic kernel-parameter limit; the correction terms live in device
+// memory so that the struct stays below it.
 static_assert(sizeof(ChainParams) <= 4096, "ChainParams exceeds 4 KB");
 
 __device__ __forceinline__ float quantize_code(float v, float scale,
@@ -365,105 +370,102 @@ __device__ __forceinline__ int pos_class(const Band& B, int r, int p) {
   return p >= B.up[r] ? 2 : 1;
 }
 
-// The correction-term table and its class lists, where the kernel reads
-// them: copied to shared memory at the start when they fit there
-// (P.bc_smem >= 0), else in device memory.
-struct Tables {
-  const int4* bc;
-  const int* cls;
-};
-
-__device__ __forceinline__ Tables tables(const ChainParams& P,
-                                         const unsigned char* smem) {
-  if (P.bc_smem < 0) return {P.bc, P.bc_cls};
-  return {reinterpret_cast<const int4*>(smem + P.bc_smem),
-          reinterpret_cast<const int*>(smem + P.cls_smem)};
+// One correction term (row a, b of P.bc) at the rows of a thread in
+// `mask` (bit i: row i, at global sweep coordinate gs + i and source ring
+// slot srow[i]), at the cross position (p1, p2), added to add[i].  A row
+// (kernels/sweep.py::_bc_table) is the term's kind, its tested value per
+// role (kNone: no test on that role) and the corrected read's offsets and
+// coefficient: a constant fires where a tested offset leaves the domain, a
+// read where every tested plane holds.  No branch: every corrected read
+// lies in the stage's halo (the wrapper checks it), so it is loaded at any
+// row and used where the term fires; a constant's row reads the element
+// itself and uses nothing of it.
+template <typename S, bool DQ>
+__device__ __forceinline__ void bc_term(const ChainParams& P, const Band& B,
+                                        const int4& a, const int4& b,
+                                        const S* src, int depth, int plane,
+                                        const int (&srow)[kRows], int cross,
+                                        int gs, int p1, int p2, unsigned mask,
+                                        float (&add)[kRows]) {
+  const bool cst = a.x == 0;
+  const bool cross_fires =
+      cst ? (a.z != kNone && (p1 + a.z < 0 || p1 + a.z >= B.n[1])) ||
+                (a.w != kNone && (p2 + a.w < 0 || p2 + a.w >= B.n[2]))
+          : (a.z == kNone || p1 == a.z) && (a.w == kNone || p2 == a.w);
+  const float coef = __int_as_float(b.z);
+  const S* at = src + cross + b.y;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int g = gs + i;
+    const bool fire =
+        (mask >> i & 1u) &&
+        (cst ? cross_fires ||
+                   (a.y != kNone && (g + a.y < 0 || g + a.y >= B.n[0]))
+             : cross_fires && (a.y == kNone || g == a.y));
+    const float v = src_at<S, DQ>(P, at + wrap(srow[i] + b.x, depth) * plane);
+    const float term = cst ? coef : __fmul_rn(coef, v);
+    add[i] = fire ? __fadd_rn(add[i], term) : add[i];
+  }
 }
 
-// The correction terms of class list k at the rows of a thread in `mask`
-// (bit i: row i, at global sweep coordinate gs + i and source ring slot
-// m + i), at the cross position (p1, p2), added in list (table) order to
-// add[i].  A compact row (kernels/sweep.py::_bc_compact) is the term's
-// kind, its tested value per role (kNone: no test on that role) and the
-// corrected read's offsets and coefficient: a constant fires where a
-// tested offset leaves the domain, a read where every tested plane holds.
+// The correction terms of one class, rows [t0, t1) of P.bc, in list
+// (table) order: two rows are loaded at once, so a list of n terms waits
+// on ceil(n / 2) loads in turn.
 template <typename S, bool DQ>
 __device__ __forceinline__ void bc_rows(const ChainParams& P, const Band& B,
-                                        const Tables& tb, const S* src,
-                                        int depth, int plane, int m,
-                                        int cross, int gs, int p1, int p2,
-                                        int k, unsigned mask,
+                                        const S* src, int depth, int plane,
+                                        const int (&srow)[kRows], int cross,
+                                        int gs, int p1, int p2, int t0,
+                                        int t1, unsigned mask,
                                         float (&add)[kRows]) {
-  const int* list = tb.cls + P.T * kClasses + 1;
-  const int t1 = tb.cls[k + 1];
-  for (int t = tb.cls[k]; t < t1; ++t) {
-    const int q = list[t];
-    const int4 a = tb.bc[2 * q];      // kind, v_s, v_c0, v_c1
-    const int4 b = tb.bc[2 * q + 1];  // o_s, o_c, coef bits, 0
-    const bool cross_fires =
-        a.x == 0 ? (a.z != kNone && (p1 + a.z < 0 || p1 + a.z >= B.n[1])) ||
-                       (a.w != kNone && (p2 + a.w < 0 || p2 + a.w >= B.n[2]))
-                 : (a.z == kNone || p1 == a.z) && (a.w == kNone || p2 == a.w);
-    const float coef = __int_as_float(b.z);
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int g = gs + i;
-      const bool fire =
-          a.x == 0
-              ? cross_fires ||
-                    (a.y != kNone && (g + a.y < 0 || g + a.y >= B.n[0]))
-              : cross_fires && (a.y == kNone || g == a.y);
-      if ((mask >> i & 1u) && fire) {
-        if (a.x == 0) {
-          add[i] = __fadd_rn(add[i], coef);
-        } else {
-          const int slot = wrap(wrap(m + i, depth) + b.x, depth);
-          const S* at = src + slot * plane + cross + b.y;
-          add[i] = __fadd_rn(add[i], __fmul_rn(coef, src_at<S, DQ>(P, at)));
-        }
-      }
-    }
+  for (int t = t0; t < t1; t += 2) {
+    const int u = t + 1 < t1 ? t + 1 : t;
+    const int4 a0 = __ldg(P.bc + 2 * t), b0 = __ldg(P.bc + 2 * t + 1);
+    const int4 a1 = __ldg(P.bc + 2 * u), b1 = __ldg(P.bc + 2 * u + 1);
+    bc_term<S, DQ>(P, B, a0, b0, src, depth, plane, srow, cross, gs, p1, p2,
+                   mask, add);
+    bc_term<S, DQ>(P, B, a1, b1, src, depth, plane, srow, cross, gs, p1, p2,
+                   t + 1 < t1 ? mask : 0u, add);
   }
 }
 
 // The boundary sums of the kRows rows (nr of them held) of a thread at
 // one cross position: rows are grouped by their class along the sweep, and
-// each group scans its class's list once.  Class (1, 1, 1) lists nothing.
+// each group applies its class's rows once.  Class (1, 1, 1) has none.
+// Each group's bounds come from the parameter bank.
 template <typename S, bool DQ>
 __device__ __forceinline__ void bc_block(const ChainParams& P, const Band& B,
-                                         const Tables& tb, const S* src,
+                                         const S* src,
                                          int depth, int plane, int m,
                                          int cross, int gs, int p1, int p2,
                                          int nr, float (&add)[kRows]) {
-  unsigned rows_of[3] = {0u, 0u, 0u};
+  unsigned rows0 = 0u, rows1 = 0u, rows2 = 0u;
+  int srow[kRows];
+  int slot = m;
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     add[i] = 0.0f;
+    srow[i] = slot;
+    slot = slot + 1 == depth ? 0 : slot + 1;
     const int c = pos_class(B, 0, gs + i);
     const unsigned bit = i < nr ? 1u << i : 0u;
-    rows_of[0] |= c == 0 ? bit : 0u;
-    rows_of[1] |= c == 1 ? bit : 0u;
-    rows_of[2] |= c == 2 ? bit : 0u;
+    rows0 |= c == 0 ? bit : 0u;
+    rows1 |= c == 1 ? bit : 0u;
+    rows2 |= c == 2 ? bit : 0u;
   }
   const int k12 = 3 * pos_class(B, 1, p1) + pos_class(B, 2, p2);
-  if (k12 == 4) rows_of[1] = 0u;  // the class (1, 1, 1)
+  if (k12 == 4) rows1 = 0u;  // the class (1, 1, 1)
+  const int k = B.list + k12;
 #pragma unroll 1
   for (int c = 0; c < 3; ++c) {
-    const unsigned rows =
-        c == 0 ? rows_of[0] : (c == 1 ? rows_of[1] : rows_of[2]);
-    if (rows)
-      bc_rows<S, DQ>(P, B, tb, src, depth, plane, m, cross, gs, p1, p2,
-                     B.list + 9 * c + k12, rows, add);
+    const unsigned rows = c == 0 ? rows0 : (c == 1 ? rows1 : rows2);
+    const int t0 = rows ? P.cls[k + 9 * c] : 0;
+    const int t1 = rows ? P.cls[k + 9 * c + 1] : 0;
+    if (t0 < t1)
+      bc_rows<S, DQ>(P, B, src, depth, plane, srow, cross, gs, p1, p2, t0,
+                     t1, rows, add);
   }
 }
-
-// Does the span [a, b] of global coordinates along axis `ax` reach into
-// stage j's face band (where a correction term can fire)?
-__device__ __forceinline__ bool in_band(const ChainParams& P, int j, int ax,
-                                        int a, int b) {
-  return a < P.st_lo[j][ax] || b >= P.n_true[ax] - P.st_hi[j][ax];
-}
-
 
 // What every thread of the block knows of one schedule entry: stage j
 // over rows [r0, r1) (relative to the step's first output row g_step) and
@@ -473,7 +475,11 @@ struct Entry {
   int e0, e1, plane_e, nchunks;
   int src_w1, src_plane, src_depth, src_origin;
   int gs0, go0, go1;  // global coordinates of the first row and column
-  bool last, has_bc, face;
+  bool last, has_bc;
+  bool sweep_face;  // a row of the entry lies in the sweep's face band
+  // The interior rectangle [a0, b0) x [a1, b1) of the entry's cross
+  // positions: class 1 along both cross axes (empty: a0 = b0 = e0).
+  int a0, b0, a1, b1;
   FastDiv by_e1, by_src_depth, by_depth;
   // The kept global range along (sweep, c0, c1), the stored rounding, and
   // where the result goes: frontier j (its byte offset, and the offset
@@ -488,8 +494,6 @@ struct Entry {
   int shape;                       // kShapeTable or a compiled shape
 };
 
-// The boundary sum, domain mask, rounding and store of kRows outputs at one
-// cross position (x0, x1) of the entry; `c` is the thread's row chunk.
 // The output element `idx` at the output's dtype (P.out_dtype).
 __device__ __forceinline__ void store_out(const ChainParams& P, long long idx,
                                           float v) {
@@ -501,19 +505,23 @@ __device__ __forceinline__ void store_out(const ChainParams& P, long long idx,
     static_cast<float*>(P.out)[idx] = v;
 }
 
-template <typename S, bool DQ>
+// The boundary sum (where FACE and `face`: the element may have terms),
+// domain mask, rounding and store of kRows outputs at one cross position
+// (x0, x1) of the entry; `c` is the thread's row chunk.
+template <bool FACE, typename S, bool DQ>
 __device__ __forceinline__ void finish(const ChainParams& P, const Entry& E,
                                        unsigned char* smem, const S* src,
                                        float (&acc)[kRows], int c, int x0,
-                                       int x1, int m, int cross, int nr) {
+                                       int x1, int m, int cross, int nr,
+                                       bool face) {
   const int j = E.j;
   const int g = E.g_step + E.r0 + c * kRows;
   const int gs = E.gs0 + c * kRows;
-  if (E.face) {
+  if (FACE && face) {
     const Band B = band_of(P, j);
     float add[kRows];
-    bc_block<S, DQ>(P, B, tables(P, smem), src, E.src_depth, E.src_plane,
-                    m, cross, gs, E.go0 + x0, E.go1 + x1, nr, add);
+    bc_block<S, DQ>(P, B, src, E.src_depth, E.src_plane, m, cross, gs,
+                    E.go0 + x0, E.go1 + x1, nr, add);
 #pragma unroll
     for (int i = 0; i < kRows; ++i) acc[i] = __fadd_rn(acc[i], add[i]);
   } else if (E.has_bc) {
@@ -560,25 +568,66 @@ __device__ __forceinline__ void finish(const ChainParams& P, const Entry& E,
   }
 }
 
+// Frame position i of the entry (the cross positions outside its
+// interior rectangle, row by row): the rows above the rectangle, the
+// side columns of the rows beside it, then the rows below.
+__device__ __forceinline__ void frame_pos(const Entry& E, int i,
+                                          const FastDiv& by_side, int& x0,
+                                          int& x1) {
+  const int top = E.a0 * E.e1;
+  const int mid = (E.b0 - E.a0) * (E.e1 - (E.b1 - E.a1));
+  if (i < top) {
+    x0 = divide(i, E.by_e1, x1);
+  } else if (i < top + mid) {
+    int r;
+    x0 = E.a0 + divide(i - top, by_side, r);
+    x1 = r < E.a1 ? r : r + (E.b1 - E.a1);
+  } else {
+    x0 = E.b0 + divide(i - top - mid, E.by_e1, x1);
+  }
+}
+
 // The entry's work, split into items of kRows rows at X cross positions
-// half = ceil(plane / X) apart (a position past the plane repeats the
-// item's first and is not stored).
-template <int X, typename S, bool DQ>
+// half = ceil(n / X) apart (a position past its region repeats the item's
+// first and is not stored).  An entry where no term can fire (FR false)
+// has one region, the whole plane, and no boundary code.  Otherwise the
+// frame's items come first, then the interior rectangle's (which has
+// terms only where the entry's rows reach a sweep face): a frame item is
+// the longest of the entry, so it starts first.
+template <int X, bool FR, typename S, bool DQ>
 __device__ void entry_items(const ChainParams& P, const Entry& E,
                             unsigned char* smem, const S* src) {
-  const int half = (E.plane_e + X - 1) / X;
-  const FastDiv by_half = make_div(half);
+  const int w_in = FR ? E.b1 - E.a1 : E.e1;
+  const int n_in = FR ? (E.b0 - E.a0) * w_in : E.plane_e;
+  const int n_fr = FR ? E.plane_e - n_in : 0;
+  const int half_in = (n_in + X - 1) / X, half_fr = (n_fr + X - 1) / X;
+  const int items_fr = E.nchunks * half_fr;
+  const FastDiv by_half_in = make_div(max(half_in, 1));
+  const FastDiv by_half_fr = make_div(max(half_fr, 1));
+  const FastDiv by_w_in = make_div(max(w_in, 1));
+  const FastDiv by_side = make_div(max(E.e1 - w_in, 1));
   const int lo0 = E.lo0, lo1 = E.lo1;
-  for (int u = threadIdx.x; u < E.nchunks * half; u += blockDim.x) {
+  for (int u = threadIdx.x; u < items_fr + E.nchunks * half_in;
+       u += blockDim.x) {
+    const bool frame = FR && u < items_fr;
+    const int n = frame ? n_fr : n_in, half = frame ? half_fr : half_in;
     int pp, m;
-    const int c = divide(u, by_half, pp);
+    const int c = frame ? divide(u, by_half_fr, pp)
+                        : divide(u - items_fr, by_half_in, pp);
     const int nr = min(kRows, E.r1 - E.r0 - c * kRows);
     divide(E.g_step + E.r0 + c * kRows + E.src_origin, E.by_src_depth, m);
     int x0[X], x1[X], cross[X];
 #pragma unroll
     for (int x = 0; x < X; ++x) {
-      const int pc = pp + x * half < E.plane_e ? pp + x * half : pp;
-      x0[x] = divide(pc, E.by_e1, x1[x]);
+      const int i = pp + x * half < n ? pp + x * half : pp;
+      if (!FR) {
+        x0[x] = divide(i, E.by_e1, x1[x]);
+      } else if (frame) {
+        frame_pos(E, i, by_side, x0[x], x1[x]);
+      } else {
+        x0[x] = E.a0 + divide(i, by_w_in, x1[x]);
+        x1[x] += E.a1;
+      }
       cross[x] = (x0[x] + lo0) * E.src_w1 + x1[x] + lo1;
     }
     float acc[X][kRows];
@@ -597,9 +646,9 @@ __device__ void entry_items(const ChainParams& P, const Entry& E,
                          m, cross, nr, acc);
 #pragma unroll
     for (int x = 0; x < X; ++x)
-      if (x == 0 || pp + x * half < E.plane_e)
-        finish<S, DQ>(P, E, smem, src, acc[x], c, x0[x], x1[x], m,
-                            cross[x], nr);
+      if (x == 0 || pp + x * half < n)
+        finish<FR, S, DQ>(P, E, smem, src, acc[x], c, x0[x], x1[x], m,
+                          cross[x], nr, frame || E.sweep_face);
   }
 }
 
@@ -640,10 +689,24 @@ __device__ void run_entry(const ChainParams& P, unsigned char* smem,
   E.go0 = P.dom[c0] + base_c0 - P.st_sfx_lo[j][c0];
   E.go1 = P.dom[c1] + base_c1 - P.st_sfx_lo[j][c1];
   E.has_bc = P.has_bc[j];
-  // The same for every thread: does any element lie in the face band?
-  E.face = E.has_bc && (in_band(P, j, s, E.gs0, E.gs0 + (r1 - r0) - 1) ||
-                        in_band(P, j, c0, E.go0, E.go0 + E.e0 - 1) ||
-                        in_band(P, j, c1, E.go1, E.go1 + E.e1 - 1));
+  // The same for every thread: where correction terms can fire.
+  E.sweep_face = false;
+  E.a0 = E.a1 = 0;
+  E.b0 = E.e0;
+  E.b1 = E.e1;
+  if (E.has_bc) {
+    const Band B = band_of(P, j);
+    E.sweep_face = E.gs0 < B.lo[0] || E.gs0 + (r1 - r0) > B.up[0];
+    E.a0 = min(max(B.lo[1] - E.go0, 0), E.e0);
+    E.b0 = min(max(B.up[1] - E.go0, E.a0), E.e0);
+    E.a1 = min(max(B.lo[2] - E.go1, 0), E.e1);
+    E.b1 = min(max(B.up[2] - E.go1, E.a1), E.e1);
+    if (E.a0 == E.b0 || E.a1 == E.b1) {  // no interior: all frame rows
+      E.a0 = E.b0 = E.e0;
+      E.a1 = 0;
+      E.b1 = E.e1;
+    }
+  }
   E.by_e1 = make_div(E.e1);
   E.by_src_depth = make_div(E.src_depth);
   E.by_depth = make_div(E.last ? 1 : P.depth[j]);
@@ -668,11 +731,18 @@ __device__ void run_entry(const ChainParams& P, unsigned char* smem,
   E.shape = P.shape[j];
   // A compiled shape has no per-tap dispatch to share between positions,
   // and at two positions it would need more than 128 registers.
-  if (E.shape == kShapeTable &&
-      E.nchunks * E.plane_e > static_cast<int>(blockDim.x))
-    entry_items<2, S, DQ>(P, E, smem, src);
+  const bool two = E.shape == kShapeTable &&
+                   E.nchunks * E.plane_e > static_cast<int>(blockDim.x);
+  const bool frame = (E.b0 - E.a0) * (E.b1 - E.a1) < E.plane_e ||
+                     E.sweep_face;
+  if (two && frame)
+    entry_items<2, true, S, DQ>(P, E, smem, src);
+  else if (two)
+    entry_items<2, false, S, DQ>(P, E, smem, src);
+  else if (frame)
+    entry_items<1, true, S, DQ>(P, E, smem, src);
   else
-    entry_items<1, S, DQ>(P, E, smem, src);
+    entry_items<1, false, S, DQ>(P, E, smem, src);
   __syncthreads();
 }
 
@@ -687,14 +757,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int t_s = P.tile[P.sweep];
   const Tin* in = static_cast<const Tin*>(P.in);
   Tin* ring = reinterpret_cast<Tin*>(smem);
-  if (P.bc_smem >= 0) {  // read by the first entry, after window_step's sync
-    int4* bc = reinterpret_cast<int4*>(smem + P.bc_smem);
-    for (int i = threadIdx.x; i < 2 * P.bc_rows; i += blockDim.x)
-      bc[i] = P.bc[i];
-    int* cls = reinterpret_cast<int*>(smem + P.cls_smem);
-    for (int i = threadIdx.x; i < P.cls_n; i += blockDim.x)
-      cls[i] = P.bc_cls[i];
-  }
 
   for (int k = 0; k < P.nswp; ++k) {
     window_step(k, P.nswp, t_s, P.h_s, P.pipelined,
@@ -741,9 +803,7 @@ KernelFn pick(int in_dtype, int smem_bytes, cudaError_t* err) {
 //   [0:3] in_stride  [3:6] out_stride  [6:9] tile  [9:12] lo_w  [12:15] win
 //   [15] sweep  [16] nswp  [17] ntiles_c0  [18] ntiles_c1  [19] pipelined
 //   [20] T  [21] threads  [22] input dtype  [23:26] n_true  [26:29] dom
-//   [29] output dtype  [30] in_quant set  [31] periodic  [32] rows of bc
-//   [33] ints of bc_cls  [34] copy both to shared memory (after the
-//   frontiers, each 16-aligned)
+//   [29] output dtype  [30] in_quant set  [31] periodic
 //   (dtype codes: 0 = float32, 1 = bfloat16, 2 = int8)
 // stage_geom: 15 ints per stage: lo[3], hi[3], sfx_lo[3], ext[3], frontier
 // depth, rounding (0 f32, 1 bf16, 2 quantized), non-periodic boundary.
@@ -751,9 +811,10 @@ KernelFn pick(int in_dtype, int smem_bytes, cudaError_t* err) {
 // tap_begin: T + 1 prefix counts; tap_off: 3 ints per tap (axis order);
 // tap_w: one float per tap; sched: 3 ints per entry, n_warm warm-up entries
 // then n_steady steady ones.  bc_begin: T + 1 prefix counts of the rows of
-// `bc`, the device table of correction terms (compact rows of 8 int32,
-// kernels/sweep.py::_bc_compact); `bc_cls` its class lists (T * 27 + 1
-// bounds, then row indices; kernels/sweep.py::_bc_classes).  threads must
+// `bc`, the device table of correction terms (rows of 8 int32,
+// kernels/sweep.py::_bc_table) class by class, each class's rows in its
+// list's order (kernels/sweep.py::_bc_classes), and `bc_bounds` the T * 27
+// + 1 bounds of the classes in it (host memory).  threads must
 // be kThreads.  smem_bytes must equal the layout computed here
 // (repro_torch.core.tiling.sweep_smem_bytes); -1 means it does not, -2
 // that stages, taps, schedule or correction terms exceed the fixed tables,
@@ -765,7 +826,7 @@ extern "C" int sweep_chain_launch(const long long* geom, const int* stage_geom,
                                   const int* tap_off, const float* tap_w,
                                   const int* sched, int n_warm, int n_steady,
                                   const int* bc_begin, const void* bc,
-                                  const void* bc_cls, const void* in,
+                                  const int* bc_bounds, const void* in,
                                   void* out, int smem_bytes, void* stream) {
   ChainParams P{};
   for (int i = 0; i < 3; ++i) {
@@ -841,15 +902,6 @@ extern "C" int sweep_chain_launch(const long long* geom, const int* stage_geom,
   }
   P.in_scale = stage_q[2 * P.T];
   P.in_zp = stage_q[2 * P.T + 1];
-  P.bc_rows = static_cast<int>(geom[32]);
-  P.cls_n = static_cast<int>(geom[33]);
-  P.bc_smem = P.cls_smem = -1;
-  if (geom[34]) {
-    P.bc_smem = static_cast<int>(need);
-    need += align16(static_cast<long long>(P.bc_rows) * 32);
-    P.cls_smem = static_cast<int>(need);
-    need += align16(static_cast<long long>(P.cls_n) * 4);
-  }
   if (need != smem_bytes || need > kSmemLimit) return -1;
   // The window copies as whole 16-byte blocks when every row starts
   // aligned in global and shared memory and is a whole number of blocks.
@@ -863,7 +915,9 @@ extern "C" int sweep_chain_launch(const long long* geom, const int* stage_geom,
   P.in = in;
   P.out = out;
   P.bc = static_cast<const int4*>(bc);
-  P.bc_cls = static_cast<const int*>(bc_cls);
+  if (bc_bounds[P.T * kClasses] > 65535) return -2;
+  for (int i = 0; i <= P.T * kClasses; ++i)
+    P.cls[i] = static_cast<unsigned short>(bc_bounds[i]);
   for (int j = 0; j <= P.T; ++j) P.tap_begin[j] = tap_begin[j];
   for (int j = 0; j < P.T; ++j) {
     // A stage reads the window (j == 0) or the previous frontier.

@@ -27,7 +27,6 @@ import numpy as np
 import torch
 
 from ..core.tiling import (
-    SMEM_BLOCK_LIMIT,
     chain_halo,
     frontier_depth,
     stage_suffix_halos,
@@ -40,7 +39,6 @@ __all__ = [
     "CHAIN_THREADS",
     "chain_occupancy",
     "chain_points",
-    "chain_smem_bytes",
     "chain_schedule",
     "sweep_apply",
     "sweep_apply_plain",
@@ -53,17 +51,14 @@ APPLY_THREADS = 256  # csrc/sweep_apply.cu
 CHAIN_THREADS = 512  # csrc/sweep_chain.cu (kThreads)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _APPLY_DTYPES = (torch.float32, torch.bfloat16)
-# The fixed tables of sweep_chain.cu: kMaxStages, kMaxTaps, kMaxSched and
-# kMaxBc (rows of the correction-term table, a device tensor).
+# The fixed tables of sweep_chain.cu: kMaxStages, kMaxTaps, kMaxSched,
+# kMaxBc (rows of the correction-term table) and the class lists' rows.
 _MAX_STAGES = 8
 _MAX_TAPS = 160
 _MAX_SCHED = 96
 _MAX_BC = 4096
-_BC_ROW = 12  # int32 per correction term; see _bc_table
-
-
-def _align16(n: int) -> int:
-    return -(-int(n) // 16) * 16
+_MAX_LISTED = 65535  # rows of the class lists (unsigned short bounds)
+_BC_ROW = 8  # int32 per correction term; see _bc_table
 
 
 def _f32(w) -> float:
@@ -177,7 +172,7 @@ _ARGTYPES = {
         _P(ctypes.c_longlong), _P(ctypes.c_int), _P(ctypes.c_float),
         _P(ctypes.c_int), _P(ctypes.c_int), _P(ctypes.c_float),
         _P(ctypes.c_int), ctypes.c_int, ctypes.c_int, _P(ctypes.c_int),
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, _P(ctypes.c_int), ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_void_p,
     ],
     "sweep_chain_occupancy": [ctypes.c_int, ctypes.c_int],
@@ -557,21 +552,25 @@ def sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
     raise ValueError("a chain needs at least one stage")
 
 
-def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
-    """The correction-term table (``csrc/sweep_chain.cu`` reads it as
-    :func:`_bc_compact` rows with :func:`_bc_classes` lists): per-stage
-    row ranges ``begin`` (T + 1 prefix counts) and the rows, 12 int32
-    each, in :func:`bc_menu` order:
+_NONE = -(2 ** 31)  # a table row's untested role
 
-    ``[kind, n, role_0, val_0, role_1, val_1, role_2, val_2, o_s, o_c,
-    coef_bits, stage]`` — ``kind`` 0 for a constant (it fires where
-    ``pos + val`` leaves ``[0, n_true)`` along any test axis), 1 for a
-    read (it fires where ``pos == val`` on every test axis); ``role`` 0
-    the sweep axis, 1 and 2 the two cross axes of the lifted 3-D grid;
-    ``o_s`` the corrected offset along the sweep axis and ``o_c`` within
-    the source plane (``o[c0] · src_w1 + o[c1]``, as the taps'); ``coef``
-    the f32 coefficient's bits.  Raises when a corrected offset leaves the
-    stage's halo (the kernel indexes shared memory with it unchecked)."""
+
+def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
+    """The correction-term table (``csrc/sweep_chain.cu`` reads its rows
+    class by class, in the order of the :func:`_bc_classes` lists):
+    per-stage row ranges ``begin`` (T + 1 prefix counts) and the rows, 8
+    int32 each, in :func:`bc_menu` order:
+
+    ``[kind, v_s, v_c0, v_c1, o_s, o_c, coef_bits, stage]`` — ``kind`` 0
+    for a constant (it fires where ``pos + v`` leaves ``[0, n_true)``
+    along any tested role), 1 for a read (it fires where ``pos == v`` on
+    every tested role); ``v_s``, ``v_c0``, ``v_c1`` the tested value per
+    role (the sweep axis and the two cross axes of the lifted 3-D grid),
+    :data:`_NONE` where the term tests nothing; ``o_s`` the corrected
+    offset along the sweep axis and ``o_c`` within the source plane
+    (``o[c0] · src_w1 + o[c1]``, as the taps'); ``coef`` the f32
+    coefficient's bits.  Raises when a corrected offset leaves the stage's
+    halo (the kernel indexes shared memory with it unchecked)."""
     d = len(tile)
     s = int(sweep) + 3 - d
     c0, c1 = [i for i in range(3) if i != s]
@@ -591,10 +590,9 @@ def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
                     f"{off}, outside the stage halo lo={tuple(st.lo)} "
                     f"hi={tuple(st.hi)}"
                 )
-            row = [0 if kind == "const" else 1, len(tests)]
+            row = [0 if kind == "const" else 1, _NONE, _NONE, _NONE]
             for i, v in tests:
-                row += [role[i + 3 - d], int(v)]
-            row += [0, 0] * (3 - len(tests))
+                row[1 + role[i + 3 - d]] = int(v)
             if kind == "read":
                 row += [off3[s], off3[c0] * src_w1 + off3[c1]]
             else:
@@ -603,23 +601,6 @@ def _bc_table(stages, tile, lo_w, hi_w, sweep, n_true):
             rows.append(row)
         begin.append(len(rows))
     return begin, rows
-
-
-_NONE = -(2 ** 31)  # a compact row's untested role
-
-
-def _bc_compact(rows) -> list[list[int]]:
-    """The correction-term rows as ``csrc/sweep_chain.cu`` reads them, 8
-    int32 each: ``[kind, v_sweep, v_c0, v_c1, o_s, o_c, coef_bits, 0]`` —
-    per role the tested value (the tap offset of a constant, the plane of a
-    read) or ``_NONE`` where the term tests nothing."""
-    out = []
-    for r in rows:
-        v = [_NONE] * 3
-        for t in range(r[1]):
-            v[r[2 + 2 * t]] = r[3 + 2 * t]
-        out.append([r[0], *v, r[8], r[9], r[10], 0])
-    return out
 
 
 N_CLASSES = 27  # position classes of an element: 3 per axis
@@ -662,8 +643,8 @@ def _bc_classes(stages, begin, rows, sweep, n_true) -> list[int]:
             bounds.append(len(index))
             for q in range(begin[j], begin[j + 1]):
                 row = rows[q]
-                tests = [(row[2 + 2 * t], row[3 + 2 * t])
-                         for t in range(row[1])]
+                tests = [(r, v) for r, v in enumerate(row[1:4])
+                         if v != _NONE]
                 if row[0] == 0:
                     fires = any(want[r] != 1 for r, _ in tests)
                 else:
@@ -678,19 +659,40 @@ _PLANS: dict = {}
 _PLANS_MAX = 64  # launch plans kept (oldest dropped first)
 
 
+def _bc_key(bc):
+    """A boundary condition as the launch consumes it: its kind and its
+    values rounded to f32 (a robin pair stays a pair)."""
+    if bc is None:
+        return None
+    kind, val = bc
+    vals = np.atleast_1d(np.asarray(val, dtype=np.float64)).ravel()
+    return (str(kind), tuple(_f32(v) for v in vals.tolist()))
+
+
 def _plan_key(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
-              n_true, dom, in_quant) -> str:
+              n_true, dom, in_quant) -> tuple:
     """Everything a chain launch's tables depend on — the buffer's shape,
     strides, dtype and device (not its data or address), the stages and
-    the options — as one hashable string."""
-    return repr((
-        tuple(x.shape), x.stride(), str(x.dtype), str(x.device),
-        [(np.asarray(st.offsets).tolist(), [float(w) for w in st.weights],
-          st.lo, st.hi, st.suffix_lo, st.suffix_hi, st.ext, st.bc, st.dtype,
-          st.quant) for st in stages],
-        tuple(lo_w), tuple(hi_w), tuple(tile), int(sweep), bool(pipelined),
-        window_kind, n_true, dom, in_quant,
-    ))
+    the options — as one hashable tuple of plain ints, floats and strings,
+    each value normalized as the launch consumes it (weights, boundary
+    values and quantization pairs as f32), so that two launches share a
+    key only if they build the same tables."""
+    def ints(v):
+        return None if v is None else tuple(int(a) for a in v)
+
+    return (
+        tuple(x.shape), tuple(x.stride()), str(x.dtype), str(x.device),
+        tuple((
+            tuple(np.asarray(st.offsets, dtype=np.int64).ravel().tolist()),
+            tuple(_f32(w) for w in st.weights), ints(st.lo), ints(st.hi),
+            ints(st.suffix_lo), ints(st.suffix_hi), ints(st.ext),
+            _bc_key(st.bc), None if st.dtype is None else str(st.dtype),
+            None if st.quant is None else _quant_pair(st.quant),
+        ) for st in stages),
+        ints(lo_w), ints(hi_w), ints(tile), int(sweep), bool(pipelined),
+        str(window_kind), ints(n_true), ints(dom),
+        None if in_quant is None else _quant_pair(in_quant),
+    )
 
 
 def _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
@@ -746,6 +748,12 @@ def _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
             f"the chain's boundary conditions need {len(bc_rows)} "
             f"correction terms; the kernel holds {_MAX_BC}"
         )
+    bc_cls = _bc_classes(stages, bc_begin, bc_rows, sweep, n_true)
+    if bc_cls[T * N_CLASSES] > _MAX_LISTED:
+        raise ValueError(
+            f"the chain's class lists hold {bc_cls[T * N_CLASSES]} "
+            f"correction-term rows; the kernel holds {_MAX_LISTED}"
+        )
     plan = {"n_true": n_true}
     if x.device.type != "cuda":
         return plan
@@ -777,15 +785,12 @@ def _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
         tap_begin.append(len(tap_w))
     stage_q += list(_quant_pair(in_quant or (1.0, 0)))
     sched = [v for entry in warm + steady for v in entry]
-    bc_rows = bc_rows or [[0] * _BC_ROW]
-    bc_cls = _bc_classes(stages, bc_begin, bc_rows, sweep, n_true)
-    # The kernel copies the tables to shared memory when they fit there.
-    bc_bytes = _align16(len(bc_rows) * 32) + _align16(4 * len(bc_cls))
-    in_smem = bool(bc_begin[-1]) and smem + bc_bytes <= SMEM_BLOCK_LIMIT
-    geom += [len(bc_rows), len(bc_cls), int(in_smem)]
+    # The kernel reads each class's rows contiguously, in its list's order,
+    # and takes the classes' bounds as parameters.
+    nb = T * N_CLASSES + 1
+    by_class = [bc_rows[q] for q in bc_cls[nb:]] or [[0] * _BC_ROW]
     plan.update(
-        out_shape=n_pad, out_dtype=out_dtype,
-        smem=smem + (bc_bytes if in_smem else 0),
+        out_shape=n_pad, out_dtype=out_dtype, smem=smem,
         arrays=(
             _c(ctypes.c_longlong, geom), _c(ctypes.c_int, stage_geom),
             _c(ctypes.c_float, stage_q), _c(ctypes.c_int, tap_begin),
@@ -793,9 +798,8 @@ def _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
             _c(ctypes.c_int, sched), len(warm), len(steady),
             _c(ctypes.c_int, bc_begin),
         ),
-        bc=torch.tensor(_bc_compact(bc_rows), dtype=torch.int32,
-                        device=x.device),
-        bc_cls=torch.tensor(bc_cls, dtype=torch.int32, device=x.device),
+        bc=torch.tensor(by_class, dtype=torch.int32, device=x.device),
+        bounds=_c(ctypes.c_int, bc_cls[:nb]),
     )
     return plan
 
@@ -836,25 +840,14 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
     fn = _entry("sweep_chain")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = fn(*plan["arrays"], plan["bc"].data_ptr(),
-                plan["bc_cls"].data_ptr(), x.data_ptr(), out.data_ptr(),
-                plan["smem"], stream)
+        rc = fn(*plan["arrays"], plan["bc"].data_ptr(), plan["bounds"],
+                x.data_ptr(), out.data_ptr(), plan["smem"], stream)
     _raise_rc("sweep_chain", rc)
     sweep_chain.launches += 1
     return out
 
 
 sweep_chain.launches = 0
-
-
-def chain_smem_bytes(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
-                     window_kind="ring", n_true=None, dom=None,
-                     in_quant=None) -> int:
-    """Dynamic shared memory of :func:`sweep_chain`'s launch on this CUDA
-    buffer: :func:`~repro_torch.core.tiling.sweep_smem_bytes` plus the
-    correction-term tables where the kernel copies them in."""
-    return _chain_plan(x, stages, lo_w, hi_w, tile, sweep, pipelined,
-                       window_kind, n_true, dom, in_quant)["smem"]
 
 
 def chain_occupancy(in_dtype, smem_bytes) -> int:

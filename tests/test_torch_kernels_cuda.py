@@ -295,6 +295,57 @@ def test_chain_face_columns_equal_plain(dev, kind, dom):
         assert _same_bits(k, p), wk
 
 
+@pytest.mark.parametrize("kind", ["neumann", "reflect", "robin"])
+@pytest.mark.parametrize("geometry", ["no_interior", "two_positions"])
+def test_chain_face_frames_equal_plain(dev, geometry, kind):
+    """The interior-then-frame split of an entry's cross positions at its
+    edges: columns whose cross extent lies wholly in the face band (an
+    empty interior, every position a frame position), and a stage on the
+    table-driven loop (the 13-point star in reverse order) whose entries
+    have more items than the block has threads, so a thread takes two
+    positions of the interior or of the frame."""
+    value = (0.7, 0.3) if kind == "robin" else 0.0
+    if geometry == "no_interior":
+        shape, tile = (8, 4, 5), (4, 4, 5)
+        stages_w = _symmetric_chain(3, 2)
+    else:
+        shape, tile = (20, 40, 70), (4, 16, 32)
+        rev = star_stencil(3, 2)[::-1]
+        stages_w = (_spec(rev, np.linspace(-0.4, 0.5, 13)),
+                    _spec(BOX27, np.linspace(-0.2, 0.3, 27)))
+    _, ins, _, _, stages, lo_w, hi_w = _launch(
+        shape, tile, stages_w[:1], stages_w, device=dev,
+        bcs_w=((kind, value),) * 2)
+    for wk in ("ring", "trapezoid"):
+        args = (ins[0], stages, lo_w, hi_w, tile, 0, True, wk, shape)
+        k = sweep.sweep_chain(*args)
+        p = sweep.sweep_chain_plain(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(k, p), wk
+
+
+def test_chain_plan_cache_keys_on_values(dev):
+    """Two launches that differ only in a quantization scale (given as
+    0-dim tensors whose printed forms agree) and a robin coefficient build
+    different tables: each equals its plain version, and they differ."""
+    shape, tile = (12, 13, 14), (4, 8, 8)
+    stages_w = _symmetric_chain(3, 2)
+    outs = []
+    for scale, alpha in ((0.02, 0.7), (0.02001, 0.70001)):
+        kw = dict(bcs_w=(("robin", (torch.tensor(alpha), 0.3)),) * 2,
+                  dtypes_w=("int8", "float32"),
+                  quants_w=((torch.tensor(scale), 3), None))
+        _, ins, _, _, stages, lo_w, hi_w = _launch(
+            shape, tile, stages_w[:1], stages_w, device=dev, **kw)
+        args = (ins[0], stages, lo_w, hi_w, tile, 0, True, "ring", shape)
+        k = sweep.sweep_chain(*args)
+        p = sweep.sweep_chain_plain(*args)
+        torch.cuda.synchronize()
+        assert _same_bits(k, p)
+        outs.append(k)
+    assert not torch.equal(outs[0], outs[1])
+
+
 def test_chain_occupancy_at_the_smoke_tile(dev):
     """At chain_T3_512's tile, one CTA of CHAIN_THREADS threads fits an SM:
     at least 16 resident warps."""

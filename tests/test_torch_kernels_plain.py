@@ -348,10 +348,8 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                                 * (win[2] if j == 0 else st3[j - 1][2][2])
                                 + np.arange(ext[2])[None, :] + lo_j[2])
                         for qi, row in enumerate(rows_j):
-                            kind, n = row[0], row[1]
-                            tests = [(row[2 + 2 * t], row[3 + 2 * t])
-                                     for t in range(n)]
-                            coef = np.array(row[10], np.int32).view(
+                            kind, tests = row[0], _row_tests(row)
+                            coef = np.array(row[6], np.int32).view(
                                 np.float32)
                             if kind == 0:
                                 hit = np.zeros(acc.shape, bool)
@@ -363,8 +361,8 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
                                 hit = np.ones(acc.shape, bool)
                                 for a, plane in tests:
                                     hit &= pos[a] == plane
-                                src = src_row(g + row[8]).reshape(-1)
-                                term = coef * src[flat + row[9]]
+                                src = src_row(g + row[4]).reshape(-1)
+                                term = coef * src[flat + row[5]]
                             hit &= listed[j][cls, qi] & face
                             add = np.where(hit, add + term, add)
                         acc = acc + add
@@ -390,6 +388,12 @@ def _emulate(x, offsets, weights, stages, lo_w, hi_w, tile, sweep_axis,
     return out.transpose(inv).reshape(tuple(int(n) for n in
                                             np.array(out_shape)[inv]
                                             [3 - d:]))
+
+
+def _row_tests(row):
+    """A correction-term row's tests: ``(role, value)`` for each role the
+    row tests (``sweep._NONE`` marks the others)."""
+    return [(r, v) for r, v in enumerate(row[1:4]) if v != sweep._NONE]
 
 
 def _band(coords, lo, hi, n):
@@ -525,8 +529,8 @@ def test_bc_table_equals_plain_bc_terms(d, kind):
     by_class = np.zeros(n3, np.float32)
     w1 = X.shape[2]
     for q, row in enumerate(rows):
-        tests = [(row[2 + 2 * t], row[3 + 2 * t]) for t in range(row[1])]
-        coef = np.array(row[10], np.int32).view(np.float32)
+        tests = _row_tests(row)
+        coef = np.array(row[6], np.int32).view(np.float32)
         if row[0] == 0:
             hit = np.zeros(n3, bool)
             for a, off in tests:
@@ -536,8 +540,8 @@ def test_bc_table_equals_plain_bc_terms(d, kind):
             hit = np.ones(n3, bool)
             for a, plane in tests:
                 hit &= idx[a] == plane
-            plane_src = X[idx[0] + lo3[0] + row[8]].reshape(n3 + (-1,))
-            flat = (idx[1] + lo3[1]) * w1 + idx[2] + lo3[2] + row[9]
+            plane_src = X[idx[0] + lo3[0] + row[4]].reshape(n3 + (-1,))
+            flat = (idx[1] + lo3[1]) * w1 + idx[2] + lo3[2] + row[5]
             term = coef * np.take_along_axis(
                 plane_src, flat[..., None], -1)[..., 0]
         got = np.where(hit, got + term, got)
@@ -550,19 +554,10 @@ def test_bc_table_equals_plain_bc_terms(d, kind):
 def _term_fires(row, p, n3):
     """The kernel's firing test of one table row at global position ``p``
     (sweep, c0, c1 roles) of a grid ``n3``."""
-    tests = [(row[2 + 2 * t], row[3 + 2 * t]) for t in range(row[1])]
+    tests = _row_tests(row)
     if row[0] == 0:
         return any(not 0 <= p[r] + off < n3[r] for r, off in tests)
     return all(p[r] == v for r, v in tests)
-
-
-def _compact_fires(row, p, n3):
-    """The kernel's test of a compact row (``sweep._bc_compact``)."""
-    none = sweep._NONE
-    if row[0] == 0:
-        return any(v != none and not 0 <= p[r] + v < n3[r]
-                   for r, v in enumerate(row[1:4]))
-    return all(v == none or p[r] == v for r, v in enumerate(row[1:4]))
 
 
 @pytest.mark.parametrize("kind", ["dirichlet", "neumann", "reflect", "robin"])
@@ -571,8 +566,8 @@ def test_bc_class_lists_equal_full_table_scan(d, kind):
     """For every position of a small grid and its suffix margin (outside
     the domain too), the terms of the element's class list that fire are
     exactly the terms of the whole table that fire, in the same order, so
-    the two sums are the same f32 sum; class (1, 1, 1) lists nothing; and
-    the compact rows the kernel reads fire where the full rows do."""
+    the two sums are the same f32 sum; and class (1, 1, 1) lists
+    nothing."""
     value = {"dirichlet": -0.75, "robin": (0.7, 0.3)}.get(kind, 0.0)
     shape = (7, 8, 9)[:d]
     offs = np.unique(BOX27[:, 3 - d:] if d == 3 else star_stencil(d, 2),
@@ -585,7 +580,6 @@ def test_bc_class_lists_equal_full_table_scan(d, kind):
         bcs_w=((kind, value), (kind, value)))
     begin, rows = sweep._bc_table(stages, shape, lo_w, hi_w, 0, shape)
     tab = sweep._bc_classes(stages, begin, rows, 0, shape)
-    compact = sweep._bc_compact(rows)
     nb = len(stages) * sweep.N_CLASSES + 1
     assert len(tab) == nb + tab[nb - 1]
     perm = _axes(d, 0)
@@ -609,8 +603,6 @@ def test_bc_class_lists_equal_full_table_scan(d, kind):
             assert all(begin[j] <= q < begin[j + 1] for q in lst)
             full = [q for q in range(begin[j], begin[j + 1])
                     if _term_fires(rows[q], p, n3)]
-            assert [q for q in range(begin[j], begin[j + 1])
-                    if _compact_fires(compact[q], p, n3)] == full
             assert [q for q in lst if _term_fires(rows[q], p, n3)] == full
             a = b = np.float32(0)
             for q in full:
@@ -782,3 +774,28 @@ def test_boundary_and_quantized_programs_name_their_roadmap_item():
     assert got.dtype == torch.bfloat16
     assert np.array_equal(np.asarray(want.astype(jnp.float32)),
                           got.float().numpy())
+
+
+def test_plan_key_normalizes_values_as_the_launch_consumes_them():
+    """The chain wrapper's table cache key holds each value as the launch
+    rounds it: two quantization scales or robin coefficients that print
+    alike as 0-dim tensors but differ in f32 get different keys, and one
+    value given as a Python float, a numpy scalar or a tensor gets one."""
+    shape, tile = (12, 13, 14), (4, 8, 8)
+    stages_w = (_spec(O7, W7), _spec(O13, W13))
+
+    def key(scale, alpha):
+        kw = dict(bcs_w=(("robin", (alpha, 0.3)),) * 2,
+                  dtypes_w=("int8", "float32"), quants_w=((scale, 3), None))
+        _, ins, _, _, stages, lo_w, hi_w = _launch(
+            shape, tile, stages_w[:1], stages_w, **kw)
+        return sweep._plan_key(ins[0], stages, lo_w, hi_w, tile, 0, True,
+                               "ring", shape, None, None)
+
+    t = torch.tensor
+    assert repr(t(0.02)) == repr(t(0.02001))
+    base = key(t(0.02), t(0.7))
+    assert key(t(0.02001), t(0.7)) != base
+    assert key(t(0.02), t(0.70001)) != base
+    assert key(0.02, 0.7) == base == key(np.float64(0.02), np.float32(0.7))
+    hash(base)
