@@ -15,6 +15,9 @@ points at full size:
   ``stencil_pallas(tile=(8, 16, 32), sweep_axis=0)``;
 * ``apply_bf16_p2_256`` — two bf16 256³ RHS with two operators,
   ``multi_stencil_pallas``;
+* ``apply_f32_p2_512_sweep1`` — two f32 512³ RHS swept along axis 1, the
+  13-point star (a compiled shape) and the 7-point star with its taps
+  reversed (the table-driven tap loop) in one launch;
 * ``chain_T3_512``      — ``stencil_iterate(time_steps=3)`` at 512³ f32,
   ring and trapezoid frontiers;
 * ``chain_T3_512_sweep1`` — the same chain swept along axis 1 with the
@@ -63,7 +66,12 @@ unfused call time over the fused one.  Beside each chain launch's ``ms``
 (one wrapper call between CUDA events, host preparation included) it
 prints ``device_ms`` (the kernel alone, from ``torch.profiler``) and
 ``cold_ms`` (one call with the wrapper's table cache emptied, so the
-host builds the launch tables).  It prints one JSON line per phase, a
+host builds the launch tables).  Each apply phase and the conv print
+``device_ms`` too, ``host_ms`` (one wrapper call up to its return, the
+card idle before it), threads, CTAs per SM, waves and the ptxas line; the
+conv prints ``copy_ms`` / ``copy_device_ms``, a device copy of its input
+(the same bytes), as the yardstick of what the card reaches.  It prints
+one JSON line per phase, a
 ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing a result.
@@ -124,7 +132,7 @@ def main() -> None:
 
     from repro_torch import convert, ir
     from repro_torch.core.cache_fitting import star_stencil
-    from repro_torch.core.tiling import sweep_smem_bytes
+    from repro_torch.core.tiling import apply_smem_bytes, sweep_smem_bytes
     from repro_torch.kernels import _build, conv1d, ref, sweep
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.ops import apply_star_2nd_order
@@ -164,10 +172,23 @@ def main() -> None:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    def device_ms(fn, reps=5):
-        """Median device time of the chain kernel alone over ``reps`` calls
-        of ``fn``, from ``torch.profiler``'s CUDA events (host preparation
-        and launch overhead excluded)."""
+    def host_ms(fn, reps=10) -> float:
+        """Median host time of one call of ``fn`` up to its return, the card
+        idle before each (the wrapper's checks, tables and launch)."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    def device_ms(fn, reps=5, kernel="sweep_chain_kernel"):
+        """Median device time of one kernel alone (the device events whose
+        name holds ``kernel``; "" for any) over ``reps`` calls of ``fn``,
+        from ``torch.profiler``'s CUDA events (host preparation and launch
+        overhead excluded)."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
@@ -178,7 +199,7 @@ def main() -> None:
             torch.cuda.synchronize()
         ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA
-              and "sweep_chain_kernel" in e.name]
+              and kernel in e.name]
         if not ts:
             return "not measured: no device events recorded"
         return statistics.median(ts)
@@ -291,6 +312,42 @@ def main() -> None:
                 for v in fns.values()),
         }
 
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def apply_info(dtype, smem, sweep_axis, ctas) -> dict:
+        """Why the apply kernel runs as it does at this launch: threads and
+        shared bytes per CTA, CTAs resident per SM (the occupancy query),
+        the grid's CTAs in waves of SMs × CTAs per SM, and ptxas's line for
+        this instantiation (with the spill total over all of them)."""
+        fns = ptxas_by_function("sweep_apply")
+        key = f"sweep_apply_kernelI{mangled[dtype]}"
+        mine = [v for k, v in fns.items() if key in k]
+        exact = [v for k, v in fns.items()
+                 if key in k and f"Li{sweep_axis}E" in k]
+        per_sm = sweep.apply_occupancy(dtype, sweep_axis, smem)
+        return {
+            "threads_per_cta": sweep.APPLY_THREADS,
+            "smem_bytes_per_cta": smem, "ctas_per_sm": per_sm,
+            "warps_per_sm": per_sm * sweep.APPLY_THREADS // 32,
+            "ctas": ctas, "waves": ctas / (n_sms * per_sm),
+            "ptxas": (exact or mine or ["not found"])[0],
+            "apply_spill_bytes_all_functions": sum(
+                v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                for v in fns.values()),
+        }
+
+    def apply_smem(args) -> int:
+        """The apply launch's dynamic shared memory (its grids all take
+        several sweep steps with a halo, so the window is pipelined)."""
+        ins, _, _, lo_w, hi_w, tile, sw, _ = args
+        return apply_smem_bytes(tile, sw, ins[0].element_size(),
+                                list(zip(lo_w, hi_w)), ins[0].stride(),
+                                n_inputs=len(ins), pipelined=True)
+
+    def apply_ctas(shape, tile, sweep_axis) -> int:
+        return prod(-(-n // t) for i, (n, t) in enumerate(zip(shape, tile))
+                    if i != sweep_axis)
+
     summary: dict = {}
     gen = torch.Generator(device=dev)
 
@@ -331,6 +388,10 @@ def main() -> None:
     err = max_err(k_out, p_out)
     assert exact, err
     kernel_ms = time_ms(lambda: sweep.sweep_apply(*args))
+    dev_ms = device_ms(lambda: sweep.sweep_apply(*args),
+                       kernel="sweep_apply_kernel")
+    info = apply_info(torch.float32, apply_smem(args),
+                      0, apply_ctas(shape, tile, 0))
     plain_ms = time_ms(lambda: sweep.sweep_apply_plain(*args))
     # A device copy of the padded input moves about the kernel's bytes:
     # the rate this card reaches in practice, beside the data-sheet bound.
@@ -347,6 +408,8 @@ def main() -> None:
         "sweep_axis": 0, "launches": launched, "exact_vs_plain": exact,
         "max_abs_err": err, "oracle_max_abs_err": oracle_err,
         "library_max_abs_diff": lib_err, "ms": kernel_ms, "call_ms": call_ms,
+        "device_ms": dev_ms, **info,
+        "host_ms": host_ms(lambda: sweep.sweep_apply(*args)),
         "copy_ms": copy_ms, "copy_bytes": 2 * ins[0].numel() * 4,
         "plain_ms": plain_ms, "library_ms": lib_ms,
         **bound(shape, 4, 4, 1, [len(w13)]), "bytes_moved": moved,
@@ -398,6 +461,10 @@ def main() -> None:
     err = max_err(k_out, p_out)
     assert exact, err
     kernel_ms = time_ms(lambda: sweep.sweep_apply(*args))
+    dev_ms = device_ms(lambda: sweep.sweep_apply(*args),
+                       kernel="sweep_apply_kernel")
+    info = apply_info(torch.bfloat16, apply_smem(args),
+                      0, apply_ctas(shape, tile, 0))
     plain_ms = time_ms(lambda: sweep.sweep_apply_plain(*args))
     kern = torch.stack([
         dense_kernel(offs13, w13, 2, torch.bfloat16),
@@ -411,6 +478,8 @@ def main() -> None:
         "tile": list(tile), "sweep_axis": 0, "p": 2, "launches": launched,
         "exact_vs_plain": exact, "max_abs_err": err,
         "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
+        "device_ms": dev_ms, **info,
+        "host_ms": host_ms(lambda: sweep.sweep_apply(*args)),
         "plain_ms": plain_ms, "library_ms": lib_ms,
         **bound(shape, 2, 2, 2, [len(w13) + len(w7)]),
         "bytes_moved": moved,
@@ -419,6 +488,74 @@ def main() -> None:
     emit(phase)
     summary["sweep_apply"].append(phase)
     del us, out, oracle, dev_, ins, k_out, p_out, args, xin
+    torch.cuda.empty_cache()
+
+    # -- apply_f32_p2_512_sweep1 ---------------------------------------------
+    # Two f32 512³ RHS swept along axis 1 (tile roles as above): the
+    # 13-point star, and the 7-point star with its taps reversed, an order
+    # no compiled shape has, so one launch holds both the compiled and the
+    # table-driven tap paths against the plain version.
+    gen.manual_seed(7)
+    shape = (512, 512, 512)
+    tile = (16, 8, 32)
+    us = [torch.randn(shape, generator=gen, device=dev) for _ in range(2)]
+    offs_r = star_stencil(3, 1)[::-1].copy()
+    w_r = [0.25] * 6 + [-1.5]
+    reset()
+    out = st.multi_stencil_pallas(
+        us, [offs13, offs_r], [w13, w_r], tile=tile, sweep_axis=1
+    )
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched["sweep_apply"] >= 1, launched
+    assert out.shape == shape and bool(torch.isfinite(out).all())
+    # f32 oracle: one sum against two, reassociated: 20 roundings of at
+    # most the scale each.
+    oracle = (ref.stencil_ref(us[0], offs13, w13)
+              + ref.stencil_ref(us[1], offs_r, w_r))
+    scale = float(sum(abs(w) for w in list(w13) + w_r)) * max(
+        float(us[0].abs().max()), float(us[1].abs().max()))
+    oracle_err = max_err(out, oracle)
+    assert oracle_err <= 1e-5 * scale, (oracle_err, scale)
+    ins, offs, wts, _, lo_w, hi_w = st._launch_inputs(
+        us, (spec(offs13, w13), spec(offs_r, w_r)), tile
+    )
+    args = (ins, offs, wts, lo_w, hi_w, tile, 1, True)
+    k_out = sweep.sweep_apply(*args)
+    p_out = sweep.sweep_apply_plain(*args)
+    torch.cuda.synchronize()
+    exact = bits_equal(k_out, p_out)
+    err = max_err(k_out, p_out)
+    assert exact, err
+    kernel_ms = time_ms(lambda: sweep.sweep_apply(*args))
+    dev_ms = device_ms(lambda: sweep.sweep_apply(*args),
+                       kernel="sweep_apply_kernel")
+    info = apply_info(torch.float32, apply_smem(args),
+                      1, apply_ctas(shape, tile, 1))
+    plain_ms = time_ms(lambda: sweep.sweep_apply_plain(*args), reps=5)
+    kern = torch.stack([
+        dense_kernel(offs13, w13, 2, torch.float32),
+        dense_kernel(offs_r, w_r, 2, torch.float32),
+    ])[None]
+    xin = torch.stack(us)[None]
+    del us
+    lib_ms = time_ms(lambda: F.conv3d(xin, kern, padding=2), reps=5)
+    phase = {
+        "phase": "apply_f32_p2_512_sweep1", "shape": list(shape),
+        "tile": list(tile), "sweep_axis": 1, "p": 2, "launches": launched,
+        "operators": ["13-point star", "7-point star, taps reversed"],
+        "exact_vs_plain": exact, "max_abs_err": err,
+        "oracle_max_abs_err": oracle_err, "ms": kernel_ms,
+        "device_ms": dev_ms, **info,
+        "host_ms": host_ms(lambda: sweep.sweep_apply(*args)),
+        "plain_ms": plain_ms, "library_ms": lib_ms,
+        **bound(shape, 4, 4, 2, [len(w13) + len(w_r)]),
+        "bytes_moved": sum(x.numel() * 4 for x in ins) + k_out.numel() * 4,
+        "card": card_line,
+    }
+    emit(phase)
+    summary["sweep_apply"].append(phase)
+    del out, oracle, ins, k_out, p_out, args, xin
     torch.cuda.empty_cache()
 
     # -- chain_T3_512 ----------------------------------------------------------
@@ -907,7 +1044,7 @@ def main() -> None:
     # -- mamba2_serve -------------------------------------------------------
     summary["conv1d"] = [mamba2_phase(
         torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
-        max_err)]
+        max_err, device_ms, host_ms, ptxas_by_function, mangled)]
 
     # -- summary ---------------------------------------------------------------
     rows = []
@@ -927,7 +1064,8 @@ def main() -> None:
             "replaces": replaces, "parts": parts,
             "launches": sum(n_launch(ph) for ph in phases),
             "max_abs_err": max(ph["max_abs_err"] for ph in phases),
-            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "ms": head["ms"], "device_ms": head.get("device_ms"),
+            "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "phase": head["phase"],
         })
@@ -998,7 +1136,8 @@ def profile_breakdown(torch, fn) -> dict:
 
 
 def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
-                 bits_equal, max_err) -> dict:
+                 bits_equal, max_err, device_ms, host_ms, ptxas_by_function,
+                 mangled) -> dict:
     """The ``mamba2_serve`` phase; returns the conv kernel's record."""
     import dataclasses
 
@@ -1074,6 +1213,27 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
         assert exact or band_ok, (err, n_diff)
         ms = time_ms(lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile, st),
                      reps=20, warmup=3)
+        conv_dev = device_ms(
+            lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile, st),
+            reps=10, kernel="conv1d_silu")
+        conv_host = host_ms(
+            lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile, st))
+        # Yardstick: a device copy of the conv's input moves its bytes.
+        copy_ms = time_ms(lambda: xbc.clone(), reps=20, warmup=3)
+        copy_dev = device_ms(lambda: xbc.clone(), reps=10, kernel="")
+        vec = conv1d._vec(xbc.shape[2], xbc, torch.empty_like(xbc), st)
+        fns = ptxas_by_function("conv1d")
+        key = f"conv1d_silu_kernelI{mangled[cdt]}Li{width}ELi{vec}E"
+        conv_info = {
+            "vec": vec, "threads_per_block": conv1d._THREADS,
+            "blocks_per_sm": conv1d.occupancy(cdt, width, vec),
+            "grid_blocks": conv1d.grid_blocks(*xbc.shape, tile, vec),
+            "ptxas": next((v for k, v in fns.items() if key in k),
+                          "not found"),
+            "conv_spill_bytes_all_functions": sum(
+                v.get("spill_stores", 0) + v.get("spill_loads", 0)
+                for v in fns.values()),
+        }
         plain_ms = time_ms(lambda: conv1d.causal_conv1d_plain(xbc, w, b, st),
                            reps=10)
         # Yardstick: one depthwise F.conv1d (channels first, left pad W-1,
@@ -1156,7 +1316,10 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
         "same_tokens_warm": same_tokens, "peak_memory_gb": peak_gb,
         "profile": prof,
         "exact_vs_plain": exact, "n_differ_vs_plain": n_diff,
-        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "max_abs_err": err, "ms": ms, "device_ms": conv_dev,
+        "host_ms": conv_host,
+        "copy_ms": copy_ms, "copy_device_ms": copy_dev,
+        "copy_bytes": 2 * n_el * 2, **conv_info, "plain_ms": plain_ms,
         "library_ms": lib_ms, "library": "F.conv1d(groups=C), no silu",
         "library_max_abs_diff": lib_diff,
         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else

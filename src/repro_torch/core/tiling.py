@@ -6,9 +6,9 @@ helpers, so that the port's launch geometry equals the reference's on the
 same inputs.  The TPU cost model (VMEM budget, lane/sublane grains, tile
 search) stays out: the Hopper planner is a slice of its own.
 
-``sweep_smem_bytes`` is new: it reckons one CTA's dynamic shared memory
-from the same geometry, laid out exactly as ``csrc/sweep_apply.cu`` and
-``csrc/sweep_chain.cu`` carve it.
+``sweep_smem_bytes`` and ``apply_smem_bytes`` are new: they reckon one
+CTA's dynamic shared memory from the same geometry, laid out exactly as
+``csrc/sweep_chain.cu`` and ``csrc/sweep_apply.cu`` carve it.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import numpy as np
 
 __all__ = [
     "SMEM_BLOCK_LIMIT",
+    "apply_smem_bytes",
     "chain_halo",
     "dtype_itemsize",
     "frontier_depth",
@@ -181,5 +182,52 @@ def sweep_smem_bytes(
             f"(tile={tuple(int(t) for t in tile)}, sweep_axis={s}, "
             f"window_kind={window_kind!r}); the limit is {SMEM_BLOCK_LIMIT} "
             "bytes — pass a smaller tile"
+        )
+    return total
+
+
+def apply_smem_bytes(
+    tile: Sequence[int],
+    sweep_axis: int,
+    dtype_bytes: int,
+    halo: Sequence[tuple[int, int]],
+    strides: Sequence[int],
+    n_inputs: int = 1,
+    pipelined: bool = False,
+) -> int:
+    """Dynamic shared memory of one ``csrc/sweep_apply.cu`` CTA, in bytes.
+
+    Axes are lifted to 3-D by leading axes of extent 1 (stride 0), and the
+    two cross axes c0 < c1 are those other than the sweep axis.  One ring
+    per RHS: ``t_s + h_s`` sweep rows (plus ``t_s`` landing rows when
+    ``pipelined``, the effective flag) of the window's cross plane.  In a
+    plane, window rows along c1 lie ``pitch`` elements apart: where c1 is
+    the minor axis (``strides`` of the padded input), the least extent >=
+    the window's c1 extent whose bytes equal the input's c0 stride modulo
+    16, so that each shared row starts at its source row's alignment;
+    else the c1 extent.  Each plane is rounded up to 16 bytes, and each
+    ring has 16 bytes more for its start's alignment shift.  Raises
+    ``ValueError`` above :data:`SMEM_BLOCK_LIMIT`, as
+    :func:`sweep_smem_bytes` does."""
+    d = len(tile)
+    s = int(sweep_axis) + 3 - d
+    tile3 = (1,) * (3 - d) + tuple(int(t) for t in tile)
+    halo3 = ((0, 0),) * (3 - d) + tuple(halo)
+    stride3 = (0,) * (3 - d) + tuple(int(v) for v in strides)
+    win = [t + int(lo) + int(hi) for t, (lo, hi) in zip(tile3, halo3)]
+    c0, c1 = [i for i in range(3) if i != s]
+    pitch = win[c1]
+    if stride3[c1] == 1:
+        while (pitch - stride3[c0]) * int(dtype_bytes) % 16:
+            pitch += 1
+    plane = _align16(win[c0] * pitch * int(dtype_bytes))
+    rows = win[s] + (tile3[s] if pipelined else 0)
+    total = int(n_inputs) * _align16(rows * plane + 16)
+    if total > SMEM_BLOCK_LIMIT:
+        raise ValueError(
+            f"sweep launch needs {total} bytes of shared memory per block "
+            f"(tile={tuple(int(t) for t in tile)}, sweep_axis={sweep_axis}, "
+            f"{n_inputs} inputs); the limit is {SMEM_BLOCK_LIMIT} bytes — "
+            "pass a smaller tile"
         )
     return total

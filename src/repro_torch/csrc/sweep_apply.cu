@@ -10,30 +10,66 @@
 // What bounds it on an H100: bytes.  A 13-point star does 26 flops per
 // output point against 8 bytes of f32 traffic (one read, one write), about
 // 3 flops per byte, far below the card's ~20 f32 flops per byte of HBM
-// bandwidth (67 TFLOP/s over 3.35 TB/s).  The least time is the padded
-// inputs read once plus the output written once at 3.35 TB/s.
+// bandwidth (67 TFLOP/s over 3.35 TB/s).  The least time is the inputs
+// read once plus the output written once at 3.35 TB/s.  What is left per
+// tap and output once the window is in shared memory is one shared load
+// (shared between taps where they read the same element), one multiply
+// and one add; the design keeps everything else off that path.
 //
-// What the design does about it: every input element crosses HBM about
-// once per sweep column.  One CTA owns one cross-axis tile column and loops
-// over its nswp sweep steps itself (a CUDA grid has no order and no
-// persistent scratch, unlike the TPU grid); the sweep-axis overlap of
-// consecutive windows stays in a shared-memory ring indexed modulo its
-// depth, so a step fetches only its new t_s rows.  With `pipelined`, the
-// ring has t_s spare rows and the next slab arrives by cp.async while the
-// current step computes (4-byte element types; cp.async has no 2-byte
-// granule, so bf16 slabs are copied synchronously into the same slots).
-// Threads map to the minor axis, so loads and stores coalesce when the
-// sweep axis is not the minor one.  Only the cross-axis halo is re-read,
-// by neighbouring columns.
+// What the design does about it:
+// * One CTA owns one cross-axis tile column and loops over its nswp sweep
+//   steps itself (a CUDA grid has no order and no persistent scratch,
+//   unlike the TPU grid); the sweep-axis overlap of consecutive windows
+//   stays in one shared-memory ring per RHS indexed modulo its depth, so a
+//   step fetches only its new t_s rows.  With `pipelined`, the ring has
+//   t_s spare rows and the next slab arrives by cp.async while the
+//   current step computes (window_step, sweep_common.cuh).
+// * 512 threads a CTA (kThreads, APPLY_THREADS in kernels/sweep.py), at
+//   most 64 registers a thread so that two CTAs share an SM.  A thread
+//   owns kRows = 4 consecutive sweep rows at one cross position:
+//   each source row's shared offset is found once per item, and the four
+//   sums are in flight together.  Index arithmetic is int32; the item's
+//   (row block, c0, c1) comes from float-reciprocal divisions (FastDiv),
+//   and the ring slot of a step's first row is kept from step to step.
+//   The kernel is built per sweep axis, so every per-axis parameter is
+//   read at a constant index.
+// * The 7- and 13-point stars and the 27-point box
+//   (core/cache_fitting.py::star_stencil order, and itertools.product
+//   order) are compiled with constant offsets for each sweep axis (the
+//   kernel is built once per sweep axis), so any RHS whose taps are one of
+//   them runs without per-tap dispatch.  Any other operator runs a
+//   table-driven loop whose taps (sweep and plane offsets packed in one
+//   int, and the weight: one 8-byte parameter read) are read a tap ahead.
+// * Window rows arrive as cp.async copies of 16 bytes where they can.
+//   Each shared row starts at its source row's address modulo 16: the row
+//   pitch is padded to the source's c0 pitch modulo 16 bytes and each RHS
+//   ring starts at its first source element's offset modulo 16.  So a bf16
+//   grid whose rows alternate between 16-byte and 8-byte alignment (a
+//   260-element padded row) still copies whole 16-byte blocks, with 8- or
+//   4-byte cp.async pieces at the ends; only a 2-byte end piece is copied
+//   by an ordinary load and store; a row takes a group of 4 to 32 lanes,
+//   as many as its pieces need.  Where the whole launch is aligned, each
+//   thread copies one 16-byte block of a flat index (copy16).  When the
+//   sweep axis is the minor one, elements are copied one by one, with the
+//   sweep rows fastest so the reads coalesce (load_rows_pitched,
+//   sweep_common.cuh).
 //
-// Bit-exactness: taps are applied in zip(offsets, weights) order as
-// separate f32 multiplies and adds (built with --fmad=false), so the result
-// equals the plain PyTorch version in kernels/sweep.py bit for bit.
+// Bit-exactness: each output's taps are applied RHS by RHS in
+// zip(offsets, weights) order as separate f32 multiplies and adds (built
+// with --fmad=false) into one sum from zero, so the result equals the plain
+// PyTorch version in kernels/sweep.py bit for bit.
+
+#include <cstring>
+#include <initializer_list>
 
 #include "sweep_common.cuh"
 
 namespace {
 
+constexpr int kThreads = 512;  // = APPLY_THREADS in kernels/sweep.py
+constexpr int kRows = 4;       // sweep rows per thread (register block)
+constexpr int kReach = 2;      // sweep offsets read through row offsets
+constexpr int kSpan = kRows + 2 * kReach;  // source rows those can read
 constexpr int kMaxRhs = 8;
 constexpr int kMaxTaps = 192;
 
@@ -45,70 +81,229 @@ struct ApplyParams {
   int tile[3];
   int lo[3];   // window halo below the tile, per axis
   int win[3];  // window extent tile + lo + hi, per axis
-  int sweep, c0, c1;  // the sweep axis and the two cross axes (c0 < c1)
   int nswp;           // sweep steps per column
   int ntiles_c1;      // tile columns along c1 (decodes blockIdx.x)
   int rows;           // ring depth in sweep rows
   int h_s;            // sweep-axis window halo lo + hi
   int pipelined;
   int p;
-  int ring_bytes;     // bytes between consecutive RHS rings (16-aligned)
+  int pitch;       // shared elements between window rows along c0
+  int plane;       // shared elements between ring slots (16-byte multiple)
+  int ring_bytes;  // bytes between consecutive RHS rings (16-aligned)
+  int copy16;      // every window row copies as whole 16-byte blocks
+  int group;       // lanes copying one window row otherwise (4 to 32)
   int tap_begin[kMaxRhs + 1];
-  int tap_s[kMaxTaps];  // tap offset along the sweep axis
-  int tap_c[kMaxTaps];  // tap offset within a window plane (c0, c1)
-  float tap_w[kMaxTaps];
+  int shape[kMaxRhs];  // kShapeTable or the compiled shape of RHS a's taps
+  // Per tap: the sweep offset (ring rows, top 8 bits) and the offset
+  // within a window plane (c0 * pitch + c1; low 24 bits), then the
+  // weight's bits.
+  int2 tap[kMaxTaps];
 };
+static_assert(sizeof(ApplyParams) <= 4096, "ApplyParams exceeds 4 KB");
 
+// Compiled operator shapes, each tap's offset per axis of the 3-D lifted
+// grid: the 7- and 13-point stars (star_stencil order: the origin, then
+// per axis -1, +1, -2, +2) and the 27-point box (itertools.product order).
+constexpr int kShapeTable = 0, kStar1 = 1, kStar2 = 2, kBox1 = 3;
+
+__host__ __device__ constexpr int shape_taps(int shape) {
+  return shape == kStar1 ? 7 : (shape == kStar2 ? 13 : 27);
+}
+
+__host__ __device__ constexpr int shape_axis_off(int shape, int t, int a) {
+  if (shape == kBox1)
+    return (a == 0 ? t / 9 : (a == 1 ? t / 3 % 3 : t % 3)) - 1;
+  const int reach = shape == kStar1 ? 1 : 2;
+  if (t == 0) return 0;
+  const int u = t - 1;
+  const int k = u % (2 * reach) / 2 + 1;
+  return u / (2 * reach) == a ? (u % 2 ? k : -k) : 0;
+}
+
+// The grid axis that plays role r (0 sweep, 1 c0, 2 c1) at sweep axis sw.
+__host__ __device__ constexpr int role_axis(int sw, int r) {
+  return r == 0 ? sw : (r == 1 ? (sw == 0 ? 1 : 0) : (sw == 2 ? 1 : 2));
+}
+
+// One compiled RHS: its taps added to the kRows sums in order.  off[k] is
+// the shared offset of the source row k - kReach rows from the thread's
+// first row, at the thread's cross position.
+template <int SH, int SW, typename T>
+__device__ __forceinline__ void shape_add(const ApplyParams& P, int q0,
+                                          const T* ring, int pitch,
+                                          const int (&off)[kSpan],
+                                          float (&acc)[kRows]) {
+#pragma unroll
+  for (int t = 0; t < shape_taps(SH); ++t) {
+    const int os = shape_axis_off(SH, t, role_axis(SW, 0));
+    const int c = shape_axis_off(SH, t, role_axis(SW, 1)) * pitch +
+                  shape_axis_off(SH, t, role_axis(SW, 2));
+    const float w = __int_as_float(P.tap[q0 + t].y);
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+      acc[i] = __fadd_rn(
+          acc[i], __fmul_rn(w, to_f32(ring[off[i + os + kReach] + c])));
+  }
+}
+
+template <int OS, typename T>
+__device__ __forceinline__ void tap_rows(const T* ring,
+                                         const int (&off)[kSpan], int c,
+                                         float w, float (&acc)[kRows]) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+    acc[i] = __fadd_rn(acc[i],
+                       __fmul_rn(w, to_f32(ring[off[i + OS + kReach] + c])));
+}
+
+// Any other RHS: its taps from the parameter bank, each read a tap ahead;
+// sweep offsets beyond kReach wrap each row's slot (m: the thread's first
+// row's slot, cross: its cross position).
 template <typename T>
-__global__ void __launch_bounds__(256)
+__device__ __forceinline__ void table_add(const ApplyParams& P, int q0,
+                                          int q1, const T* ring,
+                                          const int (&off)[kSpan], int m,
+                                          int cross, float (&acc)[kRows]) {
+  int2 next = P.tap[q0];
+  for (int q = q0; q < q1; ++q) {
+    const int2 t = next;
+    if (q + 1 < q1) next = P.tap[q + 1];
+    const int os = t.x >> 24;
+    const int c = (t.x << 8) >> 8;
+    const float w = __int_as_float(t.y);
+    if (os == 0) {
+      tap_rows<0>(ring, off, c, w, acc);
+    } else if (os == -1) {
+      tap_rows<-1>(ring, off, c, w, acc);
+    } else if (os == 1) {
+      tap_rows<1>(ring, off, c, w, acc);
+    } else if (os == -2) {
+      tap_rows<-2>(ring, off, c, w, acc);
+    } else if (os == 2) {
+      tap_rows<2>(ring, off, c, w, acc);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        int s = m + os + i;
+        while (s < 0) s += P.rows;
+        while (s >= P.rows) s -= P.rows;
+        acc[i] = __fadd_rn(
+            acc[i], __fmul_rn(w, to_f32(ring[s * P.plane + cross + c])));
+      }
+    }
+  }
+}
+
+// RHS a's ring in shared memory, offset by its first source element's
+// address modulo 16 (zero when every copy is whole 16-byte blocks).
+template <typename T>
+__device__ __forceinline__ T* ring_of(const ApplyParams& P,
+                                      unsigned char* smem, int a,
+                                      long long first) {
+  const unsigned long long addr =
+      reinterpret_cast<unsigned long long>(static_cast<const T*>(P.in[a]) +
+                                           first);
+  return reinterpret_cast<T*>(smem + a * P.ring_bytes +
+                              (P.copy16 ? 0 : static_cast<int>(addr & 15)));
+}
+
+template <typename T, int SW>
+__global__ void __launch_bounds__(512, 2)
     sweep_apply_kernel(const __grid_constant__ ApplyParams P) {
   extern __shared__ __align__(16) unsigned char smem[];
+  // The roles' grid axes are constants, so every per-axis parameter is
+  // read from the parameter bank at a fixed index.
+  constexpr int kS = role_axis(SW, 0), kC0 = role_axis(SW, 1),
+                kC1 = role_axis(SW, 2);
   const int tc1 = blockIdx.x % P.ntiles_c1;
   const int tc0 = blockIdx.x / P.ntiles_c1;
-  const long long base_c0 = static_cast<long long>(tc0) * P.tile[P.c0];
-  const long long base_c1 = static_cast<long long>(tc1) * P.tile[P.c1];
-  const int t_s = P.tile[P.sweep];
-  const int t0 = P.tile[P.c0];
-  const int t1 = P.tile[P.c1];
-  const int w1 = P.win[P.c1];
-  const int plane = P.win[P.c0] * w1;
-  const int n_out = t_s * t0 * t1;
-  const int lo_s = P.lo[P.sweep];
+  const int t_s = P.tile[kS];
+  const int t1 = P.tile[kC1];
+  const int base_c0 = tc0 * P.tile[kC0];
+  const int base_c1 = tc1 * t1;
+  const long long first =
+      base_c0 * P.in_stride[kC0] + base_c1 * P.in_stride[kC1];
+  const int n_items = (t_s + kRows - 1) / kRows * P.tile[kC0] * t1;
+  const FastDiv by_plane = make_div(P.tile[kC0] * t1), by_t1 = make_div(t1);
   T* out = static_cast<T*>(P.out);
+  // Ring slot of the window row that holds output row g_step (its row
+  // g_step + lo_s of the padded sweep axis), kept from step to step.
+  int m0 = P.lo[kS] % P.rows;
 
   for (int k = 0; k < P.nswp; ++k) {
     window_step(k, P.nswp, t_s, P.h_s, P.pipelined,
                 [&](long long g0, int n) {
                   for (int a = 0; a < P.p; ++a)
-                    load_rows(P, static_cast<const T*>(P.in[a]),
-                              reinterpret_cast<T*>(smem + a * P.ring_bytes),
-                              g0, n, base_c0, base_c1);
+                    load_rows_pitched<kThreads, kS, kC0, kC1>(
+                        P, static_cast<const T*>(P.in[a]),
+                        ring_of<T>(P, smem, a, first), g0, n, base_c0,
+                        base_c1);
                 });
-    const long long g_step = static_cast<long long>(k) * t_s;
-    for (int e = threadIdx.x; e < n_out; e += blockDim.x) {
-      const int x1 = e % t1;
-      const int t = e / t1;
-      const int x0 = t % t0;
-      const int r = t / t0;
-      const int cross = (x0 + P.lo[P.c0]) * w1 + (x1 + P.lo[P.c1]);
-      // Ring slot of window row r + lo_s; each tap shifts it by tap_s.
-      const int m = static_cast<int>((g_step + r + lo_s) % P.rows);
-      float acc = 0.0f;
+    const int g_step = k * t_s;
+    for (int u = threadIdx.x; u < n_items; u += kThreads) {
+      int rem, x1;
+      const int c = divide(u, by_plane, rem);
+      const int x0 = divide(rem, by_t1, x1);
+      const int rows = P.rows;
+      int m = m0 + c * kRows;
+      while (m >= rows) m -= rows;
+      const int cross = (x0 + P.lo[kC0]) * P.pitch + x1 + P.lo[kC1];
+      int off[kSpan];
+      int slot = m - kReach;
+      while (slot < 0) slot += rows;
+#pragma unroll
+      for (int j = 0; j < kSpan; ++j) {
+        off[j] = slot * P.plane + cross;
+        slot = slot + 1 == rows ? 0 : slot + 1;
+      }
+      float acc[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
       for (int a = 0; a < P.p; ++a) {
-        const T* ring = reinterpret_cast<const T*>(smem + a * P.ring_bytes);
-        for (int q = P.tap_begin[a]; q < P.tap_begin[a + 1]; ++q) {
-          int slot = m + P.tap_s[q];
-          if (slot < 0) slot += P.rows;
-          else if (slot >= P.rows) slot -= P.rows;
-          const float x = to_f32(ring[slot * plane + cross + P.tap_c[q]]);
-          acc = __fadd_rn(acc, __fmul_rn(P.tap_w[q], x));
+        const T* ring = ring_of<T>(P, smem, a, first);
+        const int q0 = P.tap_begin[a];
+        switch (P.shape[a]) {
+          case kStar2:
+            shape_add<kStar2, SW>(P, q0, ring, P.pitch, off, acc);
+            break;
+          case kStar1:
+            shape_add<kStar1, SW>(P, q0, ring, P.pitch, off, acc);
+            break;
+          case kBox1:
+            shape_add<kBox1, SW>(P, q0, ring, P.pitch, off, acc);
+            break;
+          default:
+            table_add(P, q0, P.tap_begin[a + 1], ring, off, m, cross, acc);
         }
       }
-      out[(g_step + r) * P.out_stride[P.sweep] +
-          (base_c0 + x0) * P.out_stride[P.c0] +
-          (base_c1 + x1) * P.out_stride[P.c1]] = from_f32<T>(acc);
+      const int r0 = c * kRows;
+      T* o = out + ((g_step + r0) * P.out_stride[kS] +
+                    (base_c0 + x0) * P.out_stride[kC0] +
+                    (base_c1 + x1) * P.out_stride[kC1]);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        if (r0 + i < t_s) o[i * P.out_stride[kS]] = from_f32<T>(acc[i]);
     }
+    m0 += t_s;
+    if (m0 >= P.rows) m0 -= P.rows;
   }
+}
+
+using KernelFn = decltype(&sweep_apply_kernel<float, 0>);
+
+// The instantiation for the dtype code and sweep axis, with its dynamic
+// shared memory raised to smem_bytes.
+KernelFn pick(int dtype, int sweep, int smem_bytes, cudaError_t* err) {
+  KernelFn fns[2][3] = {
+      {sweep_apply_kernel<float, 0>, sweep_apply_kernel<float, 1>,
+       sweep_apply_kernel<float, 2>},
+      {sweep_apply_kernel<__nv_bfloat16, 0>,
+       sweep_apply_kernel<__nv_bfloat16, 1>,
+       sweep_apply_kernel<__nv_bfloat16, 2>}};
+  KernelFn fn = fns[dtype == 1 ? 1 : 0][sweep];
+  *err = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  return fn;
 }
 
 }  // namespace
@@ -118,10 +313,15 @@ __global__ void __launch_bounds__(256)
 //   [15] sweep  [16] nswp  [17] ntiles_c0  [18] ntiles_c1  [19] pipelined
 //   [20] p  [21] threads  [22] dtype (0 = float32, 1 = bfloat16)
 // tap_begin: p + 1 prefix counts; tap_off: 3 ints per tap (axis order);
-// tap_w: one float per tap.  smem_bytes must equal the layout computed
-// here (repro_torch.core.tiling.sweep_smem_bytes); -1 means it does not,
-// -2 that the taps or RHS exceed the fixed tables.  Otherwise the return
-// is cudaGetLastError() after the launch.
+// tap_w: one float per tap.  Shared memory, per RHS (its ring): rows x
+// plane elements, plane = w0 x pitch rounded up to 16 bytes, pitch the
+// least extent >= w1 whose bytes equal the input's c0 stride modulo 16
+// (w1 where c1 is not the minor axis), plus 16 bytes for the ring's
+// alignment shift (kernels/sweep.py::apply_smem_bytes).  smem_bytes must
+// equal that: -1 means it does not (or exceeds 227 KB), -2 that the taps
+// or RHS exceed the fixed tables (or an offset does not pack), -3 that
+// threads is not kThreads.
+// Otherwise the return is the CUDA error of the launch.
 extern "C" int sweep_apply_launch(const long long* geom,
                                   const void* const* ins, void* out,
                                   const int* tap_begin, const int* tap_off,
@@ -135,9 +335,9 @@ extern "C" int sweep_apply_launch(const long long* geom,
     P.lo[i] = static_cast<int>(geom[9 + i]);
     P.win[i] = static_cast<int>(geom[12 + i]);
   }
-  P.sweep = static_cast<int>(geom[15]);
-  P.c0 = P.sweep == 0 ? 1 : 0;
-  P.c1 = P.sweep == 2 ? 1 : 2;
+  // The sweep axis and the two cross axes (c0 < c1).
+  const int sweep = static_cast<int>(geom[15]);
+  const int c0 = sweep == 0 ? 1 : 0, c1 = sweep == 2 ? 1 : 2;
   P.nswp = static_cast<int>(geom[16]);
   const long long ntiles_c0 = geom[17];
   P.ntiles_c1 = static_cast<int>(geom[18]);
@@ -145,39 +345,89 @@ extern "C" int sweep_apply_launch(const long long* geom,
   P.p = static_cast<int>(geom[20]);
   const int threads = static_cast<int>(geom[21]);
   const int dtype = static_cast<int>(geom[22]);
+  if (threads != kThreads) return -3;
   if (P.p < 1 || P.p > kMaxRhs || tap_begin[P.p] > kMaxTaps) return -2;
-  const int t_s = P.tile[P.sweep];
-  P.h_s = P.win[P.sweep] - t_s;
-  P.rows = P.win[P.sweep] + (P.pipelined ? t_s : 0);
+  const int t_s = P.tile[sweep];
+  P.h_s = P.win[sweep] - t_s;
+  P.rows = P.win[sweep] + (P.pipelined ? t_s : 0);
   const int esize = dtype == 1 ? 2 : 4;
-  P.ring_bytes = align16(static_cast<long long>(P.rows) * P.win[P.c0] *
-                         P.win[P.c1] * esize);
+  const int w0 = P.win[c0], w1 = P.win[c1];
+  P.pitch = w1;
+  if (P.in_stride[c1] == 1)
+    while ((P.pitch - P.in_stride[c0]) * esize % 16 != 0) ++P.pitch;
+  const int plane_bytes = align16(static_cast<long long>(w0) * P.pitch * esize);
+  P.plane = plane_bytes / esize;
+  P.ring_bytes = align16(static_cast<long long>(P.rows) * plane_bytes + 16);
   const long long need = static_cast<long long>(P.ring_bytes) * P.p;
   if (need != smem_bytes || need > kSmemLimit) return -1;
-  for (int a = 0; a < P.p; ++a) P.in[a] = ins[a];
+  // Every window row copies as whole 16-byte blocks when every row starts
+  // aligned in global and shared memory and is a whole number of blocks.
+  const auto aligned = [](long long bytes) { return bytes % 16 == 0; };
+  bool copy16 = P.in_stride[c1] == 1 &&
+                aligned(P.in_stride[sweep] * esize) &&
+                aligned(P.in_stride[c0] * esize) &&
+                aligned(static_cast<long long>(P.tile[c1]) * esize) &&
+                aligned(static_cast<long long>(w1) * esize);
+  for (int a = 0; a < P.p; ++a) {
+    P.in[a] = ins[a];
+    copy16 = copy16 && aligned(reinterpret_cast<long long>(ins[a]));
+  }
+  P.copy16 = copy16;
+  // Lanes a row: the power of two (4 to 32) at or above the units of a
+  // row with one piece at each end (more pieces take a second turn).
+  P.group = 4;
+  while (P.group < 32 && P.group < w1 * esize / 16 + 2) P.group *= 2;
   P.out = out;
   for (int a = 0; a <= P.p; ++a) P.tap_begin[a] = tap_begin[a];
   for (int q = 0; q < tap_begin[P.p]; ++q) {
     const int* o = tap_off + 3 * q;
-    P.tap_s[q] = o[P.sweep];
-    P.tap_c[q] = o[P.c0] * P.win[P.c1] + o[P.c1];
-    P.tap_w[q] = tap_w[q];
+    const int oc = o[c0] * P.pitch + o[c1];
+    if (oc < -(1 << 23) || oc >= (1 << 23) || o[sweep] < -128 ||
+        o[sweep] > 127)
+      return -2;
+    int wbits;
+    memcpy(&wbits, tap_w + q, sizeof(wbits));
+    P.tap[q] = make_int2(
+        static_cast<int>(static_cast<unsigned>(o[sweep]) << 24 |
+                         (static_cast<unsigned>(oc) & 0xFFFFFFu)),
+        wbits);
   }
-  const dim3 grid(static_cast<unsigned>(ntiles_c0 * P.ntiles_c1));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  for (int a = 0; a < P.p; ++a) {
+    P.shape[a] = kShapeTable;
+    const int n = tap_begin[a + 1] - tap_begin[a];
+    for (int sh : {kStar1, kStar2, kBox1}) {
+      bool same = n == shape_taps(sh);
+      for (int t = 0; same && t < n; ++t)
+        for (int ax = 0; ax < 3; ++ax)
+          same = same &&
+                 tap_off[3 * (tap_begin[a] + t) + ax] ==
+                     shape_axis_off(sh, t, ax);
+      if (same) P.shape[a] = sh;
+    }
+  }
   cudaError_t err;
-  if (dtype == 1) {
-    err = cudaFuncSetAttribute(sweep_apply_kernel<__nv_bfloat16>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sweep_apply_kernel<__nv_bfloat16><<<grid, threads, smem_bytes, s>>>(P);
-  } else {
-    err = cudaFuncSetAttribute(sweep_apply_kernel<float>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    sweep_apply_kernel<float><<<grid, threads, smem_bytes, s>>>(P);
-  }
+  KernelFn fn = pick(dtype, sweep, smem_bytes, &err);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(static_cast<unsigned>(ntiles_c0 * P.ntiles_c1));
+  void* args[] = {&P};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
+                         dim3(kThreads), args, smem_bytes,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// CTAs of the (dtype, sweep axis) instantiation resident on one SM at
+// `smem_bytes` of dynamic shared memory and kThreads threads, from
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor; a negative value is the
+// negated CUDA error (or -1 for a sweep axis outside 0..2).
+extern "C" int sweep_apply_occupancy(int dtype, int sweep, int smem_bytes) {
+  if (sweep < 0 || sweep > 2) return -1;
+  cudaError_t err;
+  KernelFn fn = pick(dtype, sweep, smem_bytes, &err);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads,
+                                                        smem_bytes);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }

@@ -1,14 +1,21 @@
 // Device helpers shared by sweep_apply.cu and sweep_chain.cu: element
-// conversion, the global-to-shared row copies into a window ring (element
-// by element in load_rows, which sweep_apply.cu uses; 16-byte blocks in
-// load_rows_wide, which sweep_chain.cu uses), and the per-step window
-// pipeline (halo'd window at step 0, then one t_s-row slab per step,
-// prefetched by cp.async one step ahead when pipelined).
+// conversion, float-reciprocal division (FastDiv), the global-to-shared
+// row copies of the window rings, and the per-step window pipeline
+// (halo'd window at step 0, then one t_s-row slab per step, prefetched by
+// cp.async one step ahead when pipelined).  Two row-copy families:
+// sweep_chain.cu's (load_rows_wide: 16-byte blocks where a row's source
+// and shared start share their alignment, else element by element;
+// load_rows where the rows are not contiguous) and sweep_apply.cu's
+// (load_rows_pitched: shared rows padded to their source's alignment,
+// copied as 16/8/4/2-byte pieces).  The second does all the first does;
+// moving the chain onto it is listed in ROADMAP.md.
 //
 // A params struct P passed to these helpers has the fields
 //   in_stride[3] (element strides of the padded input), win[3] (window
-//   extent per axis), sweep, c0, c1 (sweep and cross axes), rows (ring
-//   depth in sweep rows); load_rows_wide also reads copy16.
+//   extent per axis), rows (ring depth in sweep rows); load_rows and
+//   load_rows_wide also read sweep, c0, c1 (sweep and cross axes) and
+//   load_rows_wide copy16; load_rows_pitched reads copy16, pitch, plane
+//   and group.
 
 #pragma once
 
@@ -196,6 +203,147 @@ __device__ void load_rows_wide(const Params& P, const T* src, T* ring,
     copy_run(ring + slot * plane + x0 * w1,
              base + r * P.in_stride[P.sweep] + x0 * P.in_stride[P.c0], w1,
              lane);
+  }
+}
+
+// Copy `bytes` (2, 4, 8 or 16) from global to shared memory: cp.async for
+// 4 bytes and more, an ordinary load and store for 2.
+__device__ __forceinline__ void copy_piece(unsigned char* dst,
+                                          const unsigned char* src,
+                                          unsigned bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  } else if (bytes == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    *reinterpret_cast<unsigned short*>(dst) =
+        *reinterpret_cast<const unsigned short*>(src);
+  }
+}
+
+// One contiguous run of `len` elements from global to shared memory by a
+// group of `group` lanes (`lane` in [0, group)), in the widest granule G
+// (16, 8, 4 or 2 bytes) at which source and destination share their
+// alignment: the bytes before the first G boundary as aligned pieces
+// lowest first, whole granules, then the rest as aligned pieces largest
+// first, one unit a lane in turn.  A run shorter than two granules goes
+// element by element.  (copy_run with any alignment and group width.)
+template <typename T>
+__device__ __forceinline__ void copy_run_pieces(T* dst, const T* src,
+                                                int len, int lane,
+                                                int group) {
+  constexpr unsigned kEs = sizeof(T);
+  const unsigned long long sa = reinterpret_cast<unsigned long long>(src);
+  const unsigned da = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const unsigned diff = static_cast<unsigned>(sa) ^ da;
+  const unsigned g = (diff & 15u) == 0   ? 16u
+                     : (diff & 7u) == 0  ? 8u
+                     : (diff & 3u) == 0  ? 4u
+                                         : 2u;
+  const unsigned bytes = static_cast<unsigned>(len) * kEs;
+  unsigned head = (g - static_cast<unsigned>(sa & (g - 1))) & (g - 1);
+  if (g <= kEs || bytes < head + 2 * g) {
+    for (int e = lane; e < len; e += group)
+      copy_piece(reinterpret_cast<unsigned char*>(dst + e),
+                 reinterpret_cast<const unsigned char*>(src + e), kEs);
+    return;
+  }
+  const unsigned nblk = (bytes - head) / g;
+  const unsigned tail = bytes - head - nblk * g;
+  const int nh = __popc(head), nt = __popc(tail);
+  const int units = nh + static_cast<int>(nblk) + nt;
+  unsigned char* d = reinterpret_cast<unsigned char*>(dst);
+  const unsigned char* s = reinterpret_cast<const unsigned char*>(src);
+  for (int u = lane; u < units; u += group) {
+    unsigned at, size;
+    if (u < nh) {  // the u-th lowest set bit of head
+      unsigned h = head;
+      for (int k = 0; k < u; ++k) h &= h - 1;
+      size = h & (0u - h);
+      at = head & (size - 1);
+    } else if (u < nh + static_cast<int>(nblk)) {
+      size = g;
+      at = head + static_cast<unsigned>(u - nh) * g;
+    } else {  // the j-th highest set bit of tail
+      unsigned t = tail;
+      for (int k = 0; k < u - nh - static_cast<int>(nblk); ++k)
+        t &= ~(1u << (31 - __clz(t)));
+      size = 1u << (31 - __clz(t));
+      at = head + nblk * g + (tail & ~((size << 1) - 1));
+    }
+    copy_piece(d + at, s + at, size);
+  }
+}
+
+// load_rows_wide for a ring whose window rows lie P.pitch elements apart
+// along c0 and whose slots lie P.plane elements apart, with the axes
+// (kS sweep, kC0 < kC1 cross) and the block's kThreads threads known at
+// compile time.  Where P.copy16 (as in load_rows_wide, with the ring and
+// pitch 16-byte aligned), each thread copies whole blocks of a flat index;
+// else, with c1 the minor axis, a group of P.group lanes (a power of two
+// dividing 32) copies each row through copy_run_pieces, so a row reaches
+// 16-byte blocks whenever its shared start shares its source's address
+// modulo 16; else element by element, sweep rows fastest so that
+// neighbouring threads read neighbouring elements.
+template <int kThreads, int kS, int kC0, int kC1, typename T,
+          typename Params>
+__device__ void load_rows_pitched(const Params& P, const T* src, T* ring,
+                                  long long g0, int n, long long base_c0,
+                                  long long base_c1) {
+  const int w1 = P.win[kC1];
+  const int w0 = P.win[kC0];
+  const int slot0 = static_cast<int>(g0 % P.rows);
+  const T* base = src + g0 * P.in_stride[kS] + base_c0 * P.in_stride[kC0] +
+                  base_c1 * P.in_stride[kC1];
+  const int ss = static_cast<int>(P.in_stride[kS]);
+  const int s0 = static_cast<int>(P.in_stride[kC0]);
+  if (P.copy16) {
+    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
+    const int nb = w1 / kPer;
+    const FastDiv per_row = make_div(w0 * nb), per_run = make_div(nb);
+    for (int u = threadIdx.x; u < n * w0 * nb; u += kThreads) {
+      int rem, b;
+      const int r = divide(u, per_row, rem);
+      const int x0 = divide(rem, per_run, b);
+      int slot = slot0 + r;
+      if (slot >= P.rows) slot -= P.rows;
+      cp_async16(ring + slot * P.plane + x0 * P.pitch + b * kPer,
+                 base + static_cast<long long>(r) * ss + x0 * s0 + b * kPer);
+    }
+    return;
+  }
+  if (P.in_stride[kC1] == 1) {
+    const int lane = threadIdx.x & (P.group - 1);
+    const int shift = __ffs(P.group) - 1;
+    const FastDiv per_row = make_div(w0);
+    for (int run = threadIdx.x >> shift; run < n * w0;
+         run += kThreads >> shift) {
+      int x0;
+      const int r = divide(run, per_row, x0);
+      int slot = slot0 + r;
+      if (slot >= P.rows) slot -= P.rows;
+      copy_run_pieces(ring + slot * P.plane + x0 * P.pitch,
+                      base + static_cast<long long>(r) * ss + x0 * s0, w1,
+                      lane, P.group);
+    }
+    return;
+  }
+  const int s1 = static_cast<int>(P.in_stride[kC1]);
+  const FastDiv by_n = make_div(n), by_w1 = make_div(w1);
+  for (int u = threadIdx.x; u < n * w0 * w1; u += kThreads) {
+    int r, x1;
+    const int t = divide(u, by_n, r);
+    const int x0 = divide(t, by_w1, x1);
+    int slot = slot0 + r;
+    if (slot >= P.rows) slot -= P.rows;
+    copy_elem(ring + slot * P.plane + x0 * P.pitch + x1,
+              base + static_cast<long long>(r) * ss + x0 * s0 + x1 * s1);
   }
 }
 

@@ -3,10 +3,12 @@
 Source: ``src/repro/kernels/conv1d.py:44`` ``_conv_call`` (its ``body``
 at line 54), a Pallas TPU kernel that sweeps tiles of ``tile_s`` tokens
 per batch row and shifts the W-1-token halo inside VMEM.  Here it is
-``csrc/conv1d.cu``: each block owns one (batch row, token tile, channel
-block), reads its own halo rows from ``x`` or ``state``, and keeps the
-last W inputs in registers while each thread walks down its tile (the
-design note is in the source).
+``csrc/conv1d.cu``: each warp owns a run of at most 32 tokens of one tile
+across 32 · V channels, reads its own halo rows from ``x`` or ``state``,
+and keeps the last W inputs in registers while each lane walks down its
+run with the next rows' loads in flight (the design note is in the
+source).  The wrapper picks V, the channels a lane moves at once, from C
+and the buffers' alignment (:func:`_vec`).
 
     out[b, s, c] = silu(Σ_t f32(x[b, s-W+1+t, c]) · f32(w[t, c]) + f32(bias[c]))
 
@@ -111,22 +113,64 @@ def _check(x, conv_w, conv_b, state, tile_s) -> None:
 _ARGTYPES = [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_void_p,
 ]
+_THREADS = 256  # kThreads of conv1d.cu: threads a block, 8 warps
+_RUN = 32  # kRun of conv1d.cu: rows of one warp's run
+# Channels a thread at most: 16 bytes of f32, 8 of bf16.  16 bytes of bf16
+# (8 channels) took more registers, fewer warps an SM and more time on the
+# card (PERF.md §6, scripts/kernel_variants.py).
+_VEC = 4
 
 
-def _entry():
-    fn = _build.load("conv1d").conv1d_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES
-    return fn
+def _vec(c, x, out, state=None) -> int:
+    """Channels a thread moves at once: the most, from :data:`_VEC` down
+    by halves to one, that C is a multiple of and that x, out and state
+    all start aligned to."""
+    es = x.element_size()
+    bufs = [t for t in (x, out, state) if t is not None]
+    v = _VEC
+    while v > 1 and not (c % v == 0 and all(
+            t.data_ptr() % (v * es) == 0 for t in bufs)):
+        v //= 2
+    return v
+
+
+def grid_blocks(b, s, c, tile_s, vec) -> int:
+    """Blocks of one launch: the (batch row, tile, run, slab) items, one
+    a warp, ``_THREADS // 32`` warps a block."""
+    tile = min(int(tile_s), s)
+    items = b * -(-s // tile) * -(-tile // _RUN) * -(-(c // vec) // 32)
+    return -(-items // (_THREADS // 32))
+
+
+def _lib():
+    lib = _build.load("conv1d")
+    if not getattr(lib, "typed", False):
+        lib.conv1d_launch.restype = ctypes.c_int
+        lib.conv1d_launch.argtypes = _ARGTYPES
+        lib.conv1d_occupancy.restype = ctypes.c_int
+        lib.conv1d_occupancy.argtypes = [ctypes.c_int] * 3
+        lib.typed = True
+    return lib
+
+
+def occupancy(dtype, width, vec) -> int:
+    """Blocks of the conv kernel's (dtype, width, vec) variant resident on
+    one SM of the current card (CUDA's occupancy query).  Needs the card;
+    launches nothing."""
+    n = _lib().conv1d_occupancy(_DTYPE_CODE[dtype], int(width), int(vec))
+    if n < 0:
+        raise RuntimeError(f"conv1d_occupancy: error {-n}")
+    return n
 
 
 def causal_conv1d_launch(x, conv_w, conv_b, tile_s, state=None):
     """The kernel's wrapper.  x: (B, S, C) f32 or bf16; conv_w: (W, C);
-    conv_b: (C,); state: (B, W-1, C) or None; ``tile_s`` tokens per block.
-    A CPU tensor runs the plain version; a CUDA tensor launches the kernel
-    on the current stream or raises."""
+    conv_b: (C,), each f32 or bf16; state: (B, W-1, C) or None; ``tile_s``
+    tokens per tile.  A CPU tensor runs the plain version; a CUDA tensor
+    launches the kernel on the current stream or raises."""
     _check(x, conv_w, conv_b, state, tile_s)
     dev = x.device
     if dev.type == "cpu":
@@ -141,29 +185,29 @@ def causal_conv1d_launch(x, conv_w, conv_b, tile_s, state=None):
         )
     if not x.is_contiguous():
         raise ValueError("the conv kernel takes a contiguous x")
-    # The weights and bias go to the kernel as f32, the exact widening the
-    # reference's f32 multiply-adds apply to them; state as x's dtype.
-    w32 = conv_w.to(torch.float32).contiguous()
-    b32 = conv_b.to(torch.float32).contiguous()
+    # The kernel widens f32 or bf16 weights and bias itself, the exact
+    # widening the reference's f32 multiply-adds apply; another float dtype
+    # is widened here first.  state goes in x's dtype.
+    w = conv_w if conv_w.dtype in _DTYPE_CODE else conv_w.float()
+    bias = conv_b if conv_b.dtype in _DTYPE_CODE else conv_b.float()
+    w, bias = w.contiguous(), bias.contiguous()
     st = None if state is None else state.to(x.dtype).contiguous()
     out = torch.empty_like(x)
-    bufs = [t for t in (x, w32, b32, out, st) if t is not None]
-    vec = 2 if c % 2 == 0 and all(
-        t.data_ptr() % (2 * t.element_size()) == 0 for t in bufs
-    ) else 1
+    vec = _vec(c, x, out, st)
     tile_s = min(int(tile_s), s)
-    fn = _entry()
+    stream = torch.cuda.current_stream(dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
+        rc = _lib().conv1d_launch(
             x.data_ptr(), None if st is None else st.data_ptr(),
-            w32.data_ptr(), b32.data_ptr(), out.data_ptr(), b, s, c, width,
-            tile_s, _DTYPE_CODE[x.dtype], vec, stream,
+            w.data_ptr(), bias.data_ptr(), out.data_ptr(), b, s, c, width,
+            tile_s, _DTYPE_CODE[x.dtype], _DTYPE_CODE[w.dtype],
+            _DTYPE_CODE[bias.dtype], vec, stream.cuda_stream,
         )
     if rc == -2:
         raise RuntimeError(
             f"causal_conv1d: the kernel refused shape {(b, s, c)}, width "
-            f"{width}, tile_s {tile_s} (at most 65535 tiles and batch rows)"
+            f"{width}, tile_s {tile_s} (S at most 2^31 - 2^16 - tile_s, C "
+            f"at most 2^31 / 36)"
         )
     if rc != 0:
         raise RuntimeError(f"causal_conv1d: CUDA launch failed with cudaError {rc}")

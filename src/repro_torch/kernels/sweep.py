@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..core.tiling import (
+    apply_smem_bytes,
     chain_halo,
     frontier_depth,
     stage_suffix_halos,
@@ -36,6 +37,7 @@ from . import _build
 
 __all__ = [
     "APPLY_THREADS",
+    "apply_occupancy",
     "CHAIN_THREADS",
     "chain_occupancy",
     "chain_points",
@@ -47,7 +49,7 @@ __all__ = [
 ]
 
 # Threads per CTA, each equal to its kernel's __launch_bounds__:
-APPLY_THREADS = 256  # csrc/sweep_apply.cu
+APPLY_THREADS = 512  # csrc/sweep_apply.cu (kThreads)
 CHAIN_THREADS = 512  # csrc/sweep_chain.cu (kThreads)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _APPLY_DTYPES = (torch.float32, torch.bfloat16)
@@ -176,6 +178,7 @@ _ARGTYPES = {
         ctypes.c_int, ctypes.c_void_p,
     ],
     "sweep_chain_occupancy": [ctypes.c_int, ctypes.c_int],
+    "sweep_apply_occupancy": [ctypes.c_int] * 3,
 }
 
 
@@ -231,29 +234,38 @@ def sweep_apply_plain(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     return acc.to(ins[0].dtype)
 
 
-def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-                pipelined=True):
-    """One stencil application over p padded RHS buffers (kernel 1).
+def _apply_key(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+               pipelined) -> tuple:
+    """Everything an apply launch's arrays depend on — the buffers' shape,
+    strides, dtype, device and count, the taps (each RHS's offsets as
+    int64 and weights rounded to f32, as bytes) and the options — as one
+    hashable tuple."""
+    x = ins[0]
+    return (
+        "apply", tuple(x.shape), tuple(x.stride()), str(x.dtype),
+        str(x.device), len(ins),
+        tuple(np.asarray(o, dtype=np.int64).tobytes() for o in offsets),
+        tuple(np.asarray(w, dtype=np.float32).tobytes() for w in weights),
+        tuple(int(v) for v in lo_w), tuple(int(v) for v in hi_w),
+        tuple(int(t) for t in tile), int(sweep), bool(pipelined),
+    )
 
-    ``offsets[a]``/``weights[a]`` are RHS a's taps; ``lo_w``/``hi_w`` the
-    window halo the buffers carry; the result is the padded output."""
-    ins = list(ins)
-    _check(ins, lo_w, hi_w, tile)
-    d = ins[0].ndim
-    pipe = _effective_pipelined(pipelined, ins[0], lo_w, hi_w, tile, sweep)
-    smem = sweep_smem_bytes(
-        tile, sweep, ins[0].element_size(), halo=list(zip(lo_w, hi_w)),
+
+def _apply_plan(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+                pipelined) -> dict:
+    """Check an apply launch and build what the kernel is handed but the
+    buffers: the output's shape, the shared bytes and the C arrays.
+    Raises on what the kernel does not take."""
+    x = ins[0]
+    d = x.ndim
+    pipe = _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep)
+    smem = apply_smem_bytes(
+        tile, sweep, x.element_size(), list(zip(lo_w, hi_w)), x.stride(),
         n_inputs=len(ins), pipelined=pipe,
     )
-    dev = ins[0].device
-    if dev.type == "cpu":
-        return sweep_apply_plain(ins, offsets, weights, lo_w, hi_w, tile,
-                                 sweep, pipelined)
-    if dev.type != "cuda":
-        raise RuntimeError(f"sweep_apply: unsupported device {dev}")
-    out = torch.empty(_out_shape(ins[0], lo_w, hi_w), dtype=ins[0].dtype,
-                      device=dev)
-    geom = _geom(ins[0], out, lo_w, hi_w, tile, sweep, pipe, len(ins),
+    out = torch.empty(_out_shape(x, lo_w, hi_w), dtype=x.dtype,
+                      device="meta")
+    geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, len(ins),
                  APPLY_THREADS)
     tap_begin = [0]
     tap_off: list[int] = []
@@ -263,22 +275,73 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
         tap_off += o
         tap_w += w
         tap_begin.append(len(tap_w))
+    return dict(
+        out_shape=tuple(out.shape), smem=smem,
+        geom=_c(ctypes.c_longlong, geom),
+        taps=(_c(ctypes.c_int, tap_begin), _c(ctypes.c_int, tap_off),
+              _c(ctypes.c_float, tap_w)),
+    )
+
+
+_PLANS: dict = {}
+_PLANS_MAX = 64  # launch plans kept, apply and chain (oldest dropped first)
+
+
+def _cached_plan(key, build) -> dict:
+    """The launch plan kept under ``key``, built by ``build()`` at its first
+    use; the oldest of :data:`_PLANS_MAX` plans is dropped first."""
+    plan = _PLANS.get(key)
+    if plan is None:
+        plan = build()
+        if len(_PLANS) >= _PLANS_MAX:
+            _PLANS.pop(next(iter(_PLANS)))
+        _PLANS[key] = plan
+    return plan
+
+
+def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+                pipelined=True):
+    """One stencil application over p padded RHS buffers (kernel 1).
+
+    ``offsets[a]``/``weights[a]`` are RHS a's taps; ``lo_w``/``hi_w`` the
+    window halo the buffers carry; the result is the padded output.  On
+    the card a launch's arrays are built once per geometry and kept
+    (:func:`_apply_plan`)."""
+    ins = list(ins)
+    _check(ins, lo_w, hi_w, tile)
+    args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
+    dev = ins[0].device
+    if dev.type == "cpu":
+        _apply_plan(*args)
+        return sweep_apply_plain(*args)
+    if dev.type != "cuda":
+        raise RuntimeError(f"sweep_apply: unsupported device {dev}")
+    plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
+    out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
     fn = _entry("sweep_apply")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(
-            _c(ctypes.c_longlong, geom),
-            _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
-            out.data_ptr(), _c(ctypes.c_int, tap_begin),
-            _c(ctypes.c_int, tap_off), _c(ctypes.c_float, tap_w),
-            smem, stream,
-        )
+        rc = fn(plan["geom"],
+                _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
+                out.data_ptr(), *plan["taps"], plan["smem"], stream)
     _raise_rc("sweep_apply", rc)
     sweep_apply.launches += 1
     return out
 
 
 sweep_apply.launches = 0
+
+
+def apply_occupancy(dtype, sweep_axis, smem_bytes) -> int:
+    """CTAs of the apply kernel built for this dtype and sweep axis (of
+    the grid lifted to 3-D) resident on one SM of the current card at this much dynamic shared
+    memory and :data:`APPLY_THREADS` threads (CUDA's occupancy query).
+    Needs the card; launches nothing."""
+    n = _entry("sweep_apply", "occupancy")(_DTYPE_CODE[dtype],
+                                           int(sweep_axis), int(smem_bytes))
+    if n < 0:
+        raise RuntimeError(f"sweep_apply_occupancy: cudaError {-n}")
+    return n
 
 
 # -- kernel 2: fused stage chain ----------------------------------------------
@@ -655,8 +718,6 @@ def _bc_classes(stages, begin, rows, sweep, n_true) -> list[int]:
     return bounds + index
 
 
-_PLANS: dict = {}
-_PLANS_MAX = 64  # launch plans kept (oldest dropped first)
 
 
 def _bc_key(bc):
@@ -821,13 +882,7 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
     args = (x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
             n_true, dom, in_quant)
     if x.device.type == "cuda":
-        key = _plan_key(*args)
-        plan = _PLANS.get(key)
-        if plan is None:
-            plan = _chain_plan(*args)
-            if len(_PLANS) >= _PLANS_MAX:
-                _PLANS.pop(next(iter(_PLANS)))
-            _PLANS[key] = plan
+        plan = _cached_plan(_plan_key(*args), lambda: _chain_plan(*args))
     else:
         plan = _chain_plan(*args)
         if x.device.type != "cpu":
@@ -839,10 +894,15 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
                       device=x.device)
     fn = _entry("sweep_chain")
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+        stream = torch.cuda.current_stream(x.device)
         rc = fn(*plan["arrays"], plan["bc"].data_ptr(), plan["bounds"],
-                x.data_ptr(), out.data_ptr(), plan["smem"], stream)
+                x.data_ptr(), out.data_ptr(), plan["smem"],
+                stream.cuda_stream)
     _raise_rc("sweep_chain", rc)
+    # The kept rows may be dropped from the cache, and their memory reused
+    # on the stream that allocated them, while this launch still reads
+    # them on another: the allocator holds them until it is done.
+    plan["bc"].record_stream(stream)
     sweep_chain.launches += 1
     return out
 

@@ -36,6 +36,7 @@ torch = pytest.importorskip("torch")
 from repro_torch import ir  # noqa: E402
 from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
 from repro_torch.core.tiling import (  # noqa: E402
+    apply_smem_bytes,
     halo_from_offsets,
     sweep_smem_bytes,
 )
@@ -104,6 +105,125 @@ def test_sweep_apply_equals_plain(dev, case, pipelined, dtype):
     p = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
     torch.cuda.synchronize()
     assert _same_bits(k, p)
+
+
+def _apply_ops(d, p):
+    """p operators cycling through the compiled shapes (7- and 13-point
+    stars, the 27-point box in 3-D) and two the kernel does not compile
+    (a star in reversed order, and one tap reaching 2 along each axis)."""
+    box = np.array(list(itertools.product((-1, 0, 1), repeat=d)))
+    far = np.array([[2] * d, [0] * d, [-2] * d])
+    ops = [star_stencil(d, 2), star_stencil(d, 1)[::-1], star_stencil(d, 1),
+           box, far]
+    return tuple(_spec(ops[a % len(ops)],
+                       np.linspace(-0.5 + 0.1 * a, 0.4, len(ops[a % len(ops)])))
+                 for a in range(p))
+
+
+# shape, tile, sweep_axis: each sweep axis, at tiles whose 8 f32 rings
+# fit a block's shared memory
+RHS_CASES = [((12, 13, 14), (4, 8, 8), 0), ((12, 13, 14), (4, 4, 8), 1),
+             ((12, 13, 14), (8, 8, 4), 2), ((33, 40, 70), (4, 8, 32), 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("case", range(len(RHS_CASES)))
+def test_sweep_apply_rhs_counts_and_operators_equal_plain(dev, case, p,
+                                                          dtype):
+    """1 to 8 RHS, each sweep axis, compiled and table-driven operators
+    in one launch."""
+    shape, tile, sw = RHS_CASES[case]
+    specs = _apply_ops(len(shape), p)
+    _, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, n=p,
+                                           dtype=dtype, device=dev, seed=p)
+    k = sweep.sweep_apply(ins, o, ws, lo_w, hi_w, tile, sw)
+    pl = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
+    torch.cuda.synchronize()
+    assert _same_bits(k, pl)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [0, 1, 2, 3, 4])
+def test_sweep_apply_misaligned_inputs_equal_plain(dev, case, dtype, offset):
+    """Each RHS buffer starts `offset` elements into its allocation (a
+    different offset for the second), so rows meet shared memory at
+    every alignment; the piecewise copies keep the result exact."""
+    shape, tile, sw = CASES[case]
+    specs = _apply_ops(len(shape), 2)
+    _, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, n=2,
+                                           dtype=dtype, device=dev)
+    moved = []
+    for a, x in enumerate(ins):
+        off = offset + 3 * a
+        flat = torch.empty(x.numel() + off, dtype=dtype, device=dev)
+        view = flat[off:].view(x.shape)
+        view.copy_(x)
+        moved.append(view)
+    k = sweep.sweep_apply(moved, o, ws, lo_w, hi_w, tile, sw)
+    pl = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
+    torch.cuda.synchronize()
+    assert _same_bits(k, pl)
+
+
+# shape, tile, sweep_axis, offsets: sweep offsets beyond the kernel's
+# register-block reach (kReach = 2), which the table-driven loop wraps
+# row by row; the last 1-D case reaches farther than a tile's rows.
+FAR_CASES = [
+    ((70,), (8,), 0, [[-3], [0], [3]]),
+    ((70,), (4,), 0, [[-5], [1], [4]]),
+    ((41, 53), (16, 16), 0, star_stencil(2, 3)),
+    ((12, 13, 14), (4, 8, 8), 0, star_stencil(3, 3)),
+    ((12, 13, 14), (4, 4, 8), 1, star_stencil(3, 3)),
+    ((12, 13, 14), (8, 8, 4), 2, star_stencil(3, 3)),
+]
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(FAR_CASES)))
+def test_sweep_apply_far_sweep_offsets_equal_plain(dev, case, dtype,
+                                                   pipelined):
+    """Sweep reaches of 3 and 5, at each sweep axis, held bit for bit."""
+    shape, tile, sw, offs = FAR_CASES[case]
+    offs = np.asarray(offs)
+    specs = (_spec(offs, np.linspace(-0.45, 0.35, len(offs))),)
+    _, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, dtype=dtype,
+                                           device=dev, seed=case)
+    assert max(lo_w[sw], hi_w[sw]) >= 3
+    k = sweep.sweep_apply(ins, o, ws, lo_w, hi_w, tile, sw, pipelined)
+    pl = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
+    torch.cuda.synchronize()
+    assert _same_bits(k, pl)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sweep_apply_partial_wave_equals_plain(dev, dtype, pipelined):
+    """357 tile columns (21 × 17): a grid that leaves its last wave of
+    CTAs partly filled on any SM count, at the smoke's tile."""
+    shape, tile = (24, 336, 520), (8, 16, 32)
+    specs = (_spec(star_stencil(3, 2), np.linspace(-0.4, 0.5, 13)),)
+    _, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, dtype=dtype,
+                                           device=dev)
+    k = sweep.sweep_apply(ins, o, ws, lo_w, hi_w, tile, 0, pipelined)
+    pl = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, 0)
+    torch.cuda.synchronize()
+    assert _same_bits(k, pl)
+
+
+@pytest.mark.parametrize("sw", [0, 1, 2])
+def test_sweep_apply_occupancy_at_the_smoke_tile(dev, sw):
+    """At the smoke's tile, a CTA of APPLY_THREADS threads fits an SM, for
+    the kernel built for each sweep axis."""
+    _, ins, o, ws, _, lo_w, hi_w = _launch(
+        (16, 32, 64), (8, 16, 32),
+        (_spec(star_stencil(3, 2), np.linspace(-0.4, 0.5, 13)),),
+        device=dev)
+    smem = apply_smem_bytes((8, 16, 32), sw, 4, list(zip(lo_w, hi_w)),
+                            ins[0].stride(), pipelined=True)
+    assert sweep.apply_occupancy(torch.float32, sw, smem) >= 1
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -346,6 +466,78 @@ def test_chain_plan_cache_keys_on_values(dev):
     assert not torch.equal(outs[0], outs[1])
 
 
+def test_chain_plan_evicted_during_a_side_stream_launch_equals_plain(
+        dev, monkeypatch):
+    """A boundary chain's launch plan is built on the default stream, then
+    launched on a side stream held back by a sleep.  While that launch
+    waits, new geometries evict the plan (the cache is cut to 4 plans)
+    and the default stream takes memory of the plan's correction-term
+    rows' size for zero fills, until it is handed the evicted rows' own.
+    The side launch must still read its own rows and equal the plain
+    version, in each of three rounds: the wrapper records the side
+    stream's use of the kept rows.  A round counts only if the side launch
+    had not run when the host finished evicting; one that had is taken
+    again with a sleep four times as long, so the host's speed decides
+    how long a round takes, not whether it passes."""
+    monkeypatch.setattr(sweep, "_PLANS_MAX", 4)
+    shape, tile = (12, 13, 14), (4, 8, 8)
+    stages_w = _symmetric_chain(3, 2)
+    kw = dict(bcs_w=(("neumann", 0.0),) * 2)
+
+    def inputs(n0, seed):
+        _, ins, _, _, stages, lo_w, hi_w = _launch(
+            (n0,) + shape[1:], tile, stages_w[:1], stages_w, device=dev,
+            seed=seed, **kw)
+        return (ins[0], stages, lo_w, hi_w, tile, 0, True, "ring",
+                (n0,) + shape[1:])
+
+    evict = [inputs(shape[0] + 1 + i, i + 1)
+             for i in range(sweep._PLANS_MAX)]
+
+    def round_held(cycles):
+        """One round: whether the side launch still waited when the host
+        was done, after checking its result."""
+        sweep._PLANS.clear()
+        args = inputs(shape[0], 0)
+        want = sweep.sweep_chain_plain(*args)
+        assert _same_bits(sweep.sweep_chain(*args), want)
+        (key,) = sweep._PLANS
+        n_rows = sweep._PLANS[key]["bc"].shape[0]
+        rows_at = sweep._PLANS[key]["bc"].data_ptr()
+        # Cached memory for the zero fills: a cudaMalloc while the side
+        # launch waits would synchronize the card and let it run early.
+        warm = [torch.empty((n_rows, 8), dtype=torch.int32, device=dev)
+                for _ in range(300)]
+        del warm
+        torch.cuda.synchronize()
+        side = torch.cuda.Stream()
+        ran = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(cycles)
+            out = sweep.sweep_chain(*args)
+            ran.record()
+        for other in evict:
+            sweep.sweep_chain(*other)
+        assert key not in sweep._PLANS
+        # Zero rows: no term fires, and every read stays in the window.
+        junk = []
+        for _ in range(256):
+            junk.append(torch.zeros((n_rows, 8), dtype=torch.int32,
+                                    device=dev))
+            if junk[-1].data_ptr() == rows_at:
+                break
+        held = not ran.query()
+        ran.synchronize()
+        assert _same_bits(out, want)
+        return held
+
+    for _ in range(3):
+        cycles = 1 << 31  # about 1 s at the SM clock
+        while not round_held(cycles):
+            assert cycles < 1 << 37, "the host never finished in time"
+            cycles *= 4
+
+
 def test_chain_occupancy_at_the_smoke_tile(dev):
     """At chain_T3_512's tile, one CTA of CHAIN_THREADS threads fits an SM:
     at least 16 resident warps."""
@@ -582,10 +774,70 @@ def test_conv1d_refuses_what_it_cannot_take(dev):
         conv1d.causal_conv1d_launch(
             torch.zeros((1, 6, 8), device=dev).transpose(1, 2),
             torch.zeros((4, 6), device=dev), torch.zeros(6, device=dev), 4)
+    # C beyond what a run's 32-bit offsets hold: refused, not launched.
     with pytest.raises(RuntimeError, match="refused"):
-        conv1d.causal_conv1d_launch(torch.zeros((1, 70000, 2), device=dev),
-                                    torch.zeros((4, 2), device=dev),
-                                    torch.zeros(2, device=dev), 1)
+        conv1d.causal_conv1d_launch(
+            torch.zeros((1, 1, 60_000_000), device=dev, dtype=torch.bfloat16),
+            torch.zeros((4, 60_000_000), device=dev, dtype=torch.bfloat16),
+            torch.zeros(60_000_000, device=dev, dtype=torch.bfloat16), 1)
+    # 70,000 one-token tiles: the warps form a flat grid, so the 65,535
+    # limit of a grid dimension no longer applies; the shape runs and
+    # equals the plain version.
+    x, w, bias, _ = _conv_inputs(1, 70000, 2, 4, False, torch.float32, dev)
+    k = conv1d.causal_conv1d_launch(x, w, bias, 1)
+    torch.cuda.synchronize()
+    assert _same_bits(k, conv1d.causal_conv1d_plain(x, w, bias))
+
+
+# (batch, seq, channels, tile_s): S below the width, C = 2 (mod 8) with S
+# a multiple of neither the 32-row run nor the tile, C = 4 (mod 8), C odd,
+# and runs of one row.
+CONV_VARIANT_CASES = [(2, 2, 40, 8), (2, 75, 5370, 45), (1, 33, 5372, 16),
+                      (2, 37, 25, 8), (3, 5, 64, 1)]
+
+
+@pytest.mark.parametrize("with_state", [False, True], ids=["zeros", "state"])
+@pytest.mark.parametrize("width", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(CONV_VARIANT_CASES)))
+def test_conv1d_variants_equal_plain(dev, case, dtype, width, with_state):
+    b, s, c, tile_s = CONV_VARIANT_CASES[case]
+    x, w, bias, state = _conv_inputs(b, s, c, width, with_state, dtype, dev,
+                                     seed=case)
+    k = conv1d.causal_conv1d_launch(x, w, bias, tile_s, state)
+    p = conv1d.causal_conv1d_plain(x, w, bias, state)
+    torch.cuda.synchronize()
+    assert _same_bits(k, p), float((k.float() - p.float()).abs().max())
+
+
+@pytest.mark.parametrize("offset", [1, 2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_misaligned_x_equals_plain(dev, dtype, offset):
+    """x starts 1, 2 or 4 elements into its allocation: the wrapper takes
+    a narrower variant (one or two channels a thread, or four where the
+    offset keeps them aligned)."""
+    b, s, c = 2, 41, 64
+    flat = torch.randn(b * s * c + 8, device=dev).to(dtype)
+    x = flat[offset:offset + b * s * c].view(b, s, c)
+    _, w, bias, state = _conv_inputs(b, s, c, 4, True, dtype, dev, seed=3)
+    k = conv1d.causal_conv1d_launch(x, w, bias, 16, state)
+    torch.cuda.synchronize()
+    assert _same_bits(k, conv1d.causal_conv1d_plain(x, w, bias, state))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv1d_takes_bf16_and_f32_weights_alike(dev, dtype):
+    """bf16 weights and bias, and the same values as f32 (or mixed), give
+    the same result bit for bit: the kernel widens them exactly."""
+    x, w, bias, state = _conv_inputs(2, 70, 5376, 4, True, dtype, dev,
+                                     seed=4)
+    w16, b16 = w.to(torch.bfloat16), bias.to(torch.bfloat16)
+    outs = [conv1d.causal_conv1d_launch(x, wt, bt, 32, state)
+            for wt, bt in ((w16, b16), (w16.float(), b16.float()),
+                           (w16, b16.float()), (w16.float(), b16))]
+    p = conv1d.causal_conv1d_plain(x, w16, b16, state)
+    torch.cuda.synchronize()
+    assert all(_same_bits(o, p) for o in outs)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

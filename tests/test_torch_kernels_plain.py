@@ -622,7 +622,7 @@ def test_thread_constants_match_the_kernels_launch_bounds():
     csrc = Path(sweep.__file__).resolve().parent.parent / "csrc"
     apply_src = (csrc / "sweep_apply.cu").read_text()
     chain_src = (csrc / "sweep_chain.cu").read_text()
-    assert re.findall(r"__launch_bounds__\((\d+)\)", apply_src) == [
+    assert re.findall(r"__launch_bounds__\((\d+), 2\)", apply_src) == [
         str(sweep.APPLY_THREADS)]
     assert re.findall(r"__launch_bounds__\((\w+), 1\)", chain_src) == [
         "kThreads"]
