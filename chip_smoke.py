@@ -42,6 +42,19 @@ points at full size:
   stages 0 and 1 quantized to int8 (scale 0.02, zero point 3), plus the
   same chain split after stage 1 into two launches that hand int8 codes
   over (``in_quant``);
+* ``planned_apply_f32_512``, ``planned_chain_T3_512``,
+  ``planned_chain_int8_512``, ``planned_apply_bf16_p2_256`` — the calls of
+  ``apply_f32_512``, ``chain_T3_512``, ``chain_int8_512`` and
+  ``apply_bf16_p2_256`` with ``tile=None``: the plan compiler decides tile,
+  sweep axis, window kind and fusion depth for this card (after a
+  ``hopper_device`` line with the card's description); each prints the
+  plan (smem per CTA, CTAs per SM, waves, ``modeled_ms``) beside the
+  measured time and the hand-picked phase's from the same run, and holds
+  the output bit-equal to the same launches run by the plain versions;
+* ``unfavorable_sweep`` — the planned 13-point star on n × n × 256 f32
+  grids, n = 500..516, at the planned and at a fixed tile, ns per point
+  beside whether the paper's §6 criterion flags the grid under the
+  paper's (2, 512, 4) cache and under a stated L1 model;
 * ``mamba2_serve``      — Mamba2-2.7B at its published width and depth (64
   layers, weights drawn from a seeded generator) with the conv on the
   kernel (``pallas_conv=True, conv_tile=256``), serving batch 4 × 2048
@@ -49,7 +62,9 @@ points at full size:
   (prefill, then 15 greedy decode steps); the conv kernel against its
   plain version on layer 0's real conv input; prefill(S−1) + decode(1)
   against a teacher-forced forward; a 2-layer full-width model on the
-  card against the CPU.
+  card against the CPU;
+* ``planned_conv``      — the prefill conv's shape with ``tile_s=None``:
+  the planned tile and the serving phase's 256, both timed.
 
 Each phase zeroes the kernels' launch counters, drives the path, reads the
 counters (each kernel of the path must have launched), checks the output
@@ -127,6 +142,8 @@ def main() -> None:
              "root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
 
+    import dataclasses
+
     import numpy as np
     import torch.nn.functional as F
 
@@ -136,6 +153,7 @@ def main() -> None:
     from repro_torch.kernels import _build, conv1d, ref, sweep
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.ops import apply_star_2nd_order
+    from repro_torch.plan import default_planner
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1041,13 +1059,286 @@ def main() -> None:
     del u
     torch.cuda.empty_cache()
 
+    # -- planned phases: tile=None through the plan compiler ---------------
+    # Each drives the public entry point without a tile, so the default
+    # planner decides tile, sweep axis, window kind and fusion depth for
+    # this card; holds the output bit-equal to the same launches run by the
+    # plain versions; and times it beside the hand-picked phase above.
+    planner = default_planner()
+    seen_plans: list = []
+    plan_fn = planner.plan
+
+    def recording_plan(request=None, /, **kw):
+        p = plan_fn(request, **kw)
+        seen_plans.append(p)
+        return p
+
+    planner.plan = recording_plan
+    hardware = sweep.hopper_device(dev)
+    emit({"phase": "hopper_device", **dataclasses.asdict(hardware),
+          "card": card_line})
+
+    def plain_versions(fn):
+        """``fn()`` with the frontend's kernel wrappers swapped for their
+        plain versions: the same launches at the same planned decision."""
+        saved = st.sweep_apply, st.sweep_chain
+        st.sweep_apply, st.sweep_chain = (sweep.sweep_apply_plain,
+                                          sweep.sweep_chain_plain)
+        try:
+            return fn()
+        finally:
+            st.sweep_apply, st.sweep_chain = saved
+
+    def by_name(name):
+        return next(ph for phs in summary.values() for ph in phs
+                    if ph["phase"] == name)
+
+    def planned_phase(name, call, hand_name, hand_ms, compare, extra=None):
+        """Drive ``call()`` (no tile), check it, time it; ``compare``
+        names the metric held against ``hand_ms`` (the hand-picked
+        phase's, same run)."""
+        seen_plans.clear()
+        reset()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t0
+        launched = counts()
+        assert seen_plans, name
+        plan = seen_plans[-1]
+        assert launched[f"sweep_{plan.kernel}"] >= 1, (name, launched)
+        n_launch = -(-plan.time_steps // plan.fused_depth)
+        assert sum(launched.values()) == n_launch, (name, launched)
+        assert bool(torch.isfinite(out.float()).all())
+        plain = plain_versions(call)
+        exact = bits_equal(out, plain)
+        err = max_err(out, plain)
+        assert exact, (name, err)
+        del plain
+        torch.cuda.empty_cache()
+        call_ms = time_ms(call, reps=5)
+        dev_one = device_ms(call, reps=3, kernel=f"sweep_{plan.kernel}_kernel")
+        dev_call = (dev_one * n_launch if isinstance(dev_one, float)
+                    else dev_one)
+        measured = {"device_ms": dev_call, "call_ms": call_ms}[compare]
+        phase = {
+            "phase": name, "shape": list(out.shape),
+            "plan": {"tile": list(plan.tile), "sweep_axis": plan.sweep_axis,
+                     "fused_depth": plan.fused_depth,
+                     "window_kind": plan.window_kind, "kernel": plan.kernel,
+                     "smem_bytes_per_cta": plan.vmem_bytes,
+                     "ctas_per_sm": plan.ctas_per_sm, "waves": plan.waves,
+                     "modeled_ms": plan.modeled_ms,
+                     "depth_ms": [list(r) for r in plan.depth_ms],
+                     "legacy_modeled_ms": plan.legacy_modeled_ms},
+            "launches": launched, "launches_per_call": n_launch,
+            "exact_vs_plain": exact, "max_abs_err": err,
+            "device_ms": dev_call, "device_ms_per_launch": dev_one,
+            "call_ms": call_ms, "first_call_s": first_call_s,
+            "hand_picked": hand_name, "hand_ms": hand_ms,
+            "compared": compare,
+            "planned_over_hand": (measured / hand_ms
+                                  if isinstance(measured, float) else None),
+            "modeled_over_measured": (plan.modeled_ms / measured
+                                      if isinstance(measured, float)
+                                      and compare == "device_ms" else None),
+            "card": card_line,
+        }
+        phase.update(extra or {})
+        return phase, out
+
+    # planned_apply_f32_512: apply_f32_512's call without its tile.
+    gen.manual_seed(0)
+    u = torch.randn(big, generator=gen, device=dev)
+    hand = summary["sweep_apply"][0]
+    phase, out = planned_phase(
+        "planned_apply_f32_512", lambda: st.stencil_pallas(u, offs13, w13),
+        "apply_f32_512", hand["device_ms"], "device_ms")
+    hand_out = st.stencil_pallas(u, offs13, w13, tile=(8, 16, 32),
+                                 sweep_axis=0)
+    phase["equals_hand_picked"] = bits_equal(out, hand_out)
+    phase.update(**bound(big, 4, 4, 1, [len(w13)]), library_ms=None,
+                 plain_ms=None, ms=phase["call_ms"])
+    emit(phase)
+    summary["sweep_apply"].append(phase)
+    del out, hand_out
+    torch.cuda.empty_cache()
+
+    # planned_chain_T3_512: chain_T3_512's call without its tile, against
+    # the faster of its fused call and three single applications.
+    gen.manual_seed(2)
+    u = torch.randn(big, generator=gen, device=dev)
+    hand = summary["sweep_chain"][0]
+    best = min(hand["call_ms"], hand["unfused_call_ms"])
+    phase, out = planned_phase(
+        "planned_chain_T3_512",
+        lambda: st.stencil_iterate(u, offs13, w13, 3),
+        "chain_T3_512" if best == hand["call_ms"]
+        else "chain_T3_512 unfused", best, "call_ms",
+        extra={"hand_fused_call_ms": hand["call_ms"],
+               "hand_unfused_call_ms": hand["unfused_call_ms"]})
+    hand_out = st.stencil_iterate(u, offs13, w13, 3, tile=(4, 16, 32),
+                                  sweep_axis=0)
+    phase["equals_hand_picked"] = bits_equal(out, hand_out)
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3), library_ms=None,
+                 plain_ms=None, ms=phase["call_ms"])
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del out, hand_out, u
+    torch.cuda.empty_cache()
+
+    # planned_chain_int8_512: the int8 reflect chain without its tile; a
+    # plan whose depth is below 3 hands int8 codes from launch to launch.
+    gen.manual_seed(4)
+    u8 = torch.randn(big, generator=gen, device=dev) * 0.01
+    prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="reflect",
+                            quants=[q, q, None])
+    hand = by_name("chain_int8_512")
+    phase, out = planned_phase(
+        "planned_chain_int8_512", lambda: ir.run_program(prog, u8),
+        "chain_int8_512", hand["call_ms"], "call_ms")
+    fused = ir.run_program(prog, u8, tile=(4, 16, 32), sweep_axis=0)
+    phase["equals_fused"] = bits_equal(out, fused)
+    assert phase["equals_fused"]
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3), library_ms=None,
+                 plain_ms=None, ms=phase["call_ms"])
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del out, fused, u8
+    torch.cuda.empty_cache()
+
+    # planned_apply_bf16_p2_256: apply_bf16_p2_256's call without its tile.
+    gen.manual_seed(1)
+    us = [torch.randn((256,) * 3, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    hand = summary["sweep_apply"][1]
+    phase, out = planned_phase(
+        "planned_apply_bf16_p2_256",
+        lambda: st.multi_stencil_pallas(us, [offs13, offs7], [w13, w7]),
+        "apply_bf16_p2_256", hand["device_ms"], "device_ms")
+    hand_out = st.multi_stencil_pallas(us, [offs13, offs7], [w13, w7],
+                                       tile=(8, 16, 32), sweep_axis=0)
+    phase["equals_hand_picked"] = bits_equal(out, hand_out)
+    phase.update(**bound((256,) * 3, 2, 2, 2, [len(w13) + len(w7)]),
+                 library_ms=None, plain_ms=None, ms=phase["call_ms"])
+    emit(phase)
+    summary["sweep_apply"].append(phase)
+    del out, hand_out, us
+    torch.cuda.empty_cache()
+
+    # unfavorable_sweep: the paper's question on this card.  The planned
+    # 13-point star on n × n × 256 f32 grids, n = 500..516, timed (the
+    # kernel alone, CUDA events) at the planned tile and at the fixed
+    # tile (8, 16, 32), beside whether the grid is unfavorable (§6) under
+    # the paper's (2, 512, 4) cache and under a stated L1 model: 4 ways ×
+    # 64 sets × 128-byte lines (32 f32 words), 32 KB.  Lattices are of the
+    # grid in memory order, fastest axis first: (256, n, n).  Two passes,
+    # n rising then falling, so that a drift of the card's clock is not
+    # read as a dependence on n; each time is the median of 20 launches.
+    geoms = {"paper_2_512_4": (2, 512, 4), "l1_4_64_32": (4, 64, 32)}
+    rows, swept = {}, {name: 0 for name in kernels}
+    for pass_, ns in enumerate((range(500, 517), range(516, 499, -1))):
+        for n in ns:
+            shape = (n, n, 256)
+            gen.manual_seed(n)
+            u = torch.randn(shape, generator=gen, device=dev)
+            reset()
+            out = st.stencil_pallas(u, offs13, w13)
+            torch.cuda.synchronize()
+            for k_, v in counts().items():
+                swept[k_] += v
+            plan = st._auto_tile(shape, [spec(offs13, w13)[0]], 4, 1, dev,
+                                 window_kind="auto")
+            row = rows.setdefault(n, {
+                "n": n, "tile": list(plan.tile),
+                "sweep_axis": plan.sweep_axis,
+                "modeled_ms": plan.modeled_ms})
+            for label, tile, sw in (("planned", plan.tile, plan.sweep_axis),
+                                    ("fixed", (8, 16, 32), 0)):
+                ins, offs, wts, _, lo_w, hi_w = st._launch_inputs(
+                    [u], (spec(offs13, w13),), tile)
+                args = (ins, offs, wts, lo_w, hi_w, tile, sw, True)
+                k_out = sweep.sweep_apply(*args)
+                if pass_ == 0:
+                    exact = bits_equal(k_out, sweep.sweep_apply_plain(*args))
+                    assert exact, (n, label)
+                ms = time_ms(lambda: sweep.sweep_apply(*args), reps=20)
+                row.setdefault(f"{label}_ms", []).append(ms)
+                row.setdefault(f"{label}_ns_per_point", []).append(
+                    ms * 1e6 / prod(shape))
+                del ins, k_out, args
+            for gname, (a, z, w) in geoms.items():
+                rep_ = planner.lattice_report(shape[::-1], a * z * w, 5, a=1)
+                row[gname] = {"unfavorable": rep_.unfavorable,
+                              "shortest_l1": rep_.shortest_l1,
+                              "hyperbola_k": rep_.hyperbola_k}
+            del u, out
+            torch.cuda.empty_cache()
+    emit({"phase": "unfavorable_sweep", "grids": "n x n x 256 f32",
+          "passes": 2, "launches": swept,
+          "rows": [rows[n] for n in sorted(rows)], "card": card_line})
+
     # -- mamba2_serve -------------------------------------------------------
     summary["conv1d"] = [mamba2_phase(
         torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
         max_err, device_ms, host_ms, ptxas_by_function, mangled)]
 
+    # planned_conv: the prefill conv's shape with tile_s=None; the planned
+    # tile against the serving phase's 256, both timed: the tile only
+    # changes the padding.
+    gen.manual_seed(8)
+    xbc = torch.randn((4, 2048, 5376), generator=gen, device=dev).to(
+        torch.bfloat16)
+    cw = (torch.randn((4, 5376), generator=gen, device=dev) * 0.3).to(
+        torch.bfloat16)
+    cb = (torch.randn((5376,), generator=gen, device=dev) * 0.1).to(
+        torch.bfloat16)
+    reset()
+    out = conv1d.causal_conv1d(xbc, cw, cb)
+    torch.cuda.synchronize()
+    launched = counts()
+    assert launched["conv1d"] == 1, launched
+    tile_s = conv1d._planned_tile_s(2048, 5376, 4, 2, hardware.key())
+    p_out = conv1d.causal_conv1d_plain(xbc, cw, cb)
+    exact = bits_equal(out, p_out)
+    diff = (out.float() - p_out.float()).abs()
+    # One bf16 ulp of the output where not bit-equal, as mamba2_serve.
+    assert exact or bool((diff <= 2.0 ** -8 * p_out.float().abs()
+                          + 1e-30).all()), float(diff.max())
+    timed = {}
+    for t in (tile_s, 256):
+        timed[t] = {
+            "ms": time_ms(lambda: conv1d.causal_conv1d_launch(xbc, cw, cb, t),
+                          reps=20, warmup=3),
+            "device_ms": device_ms(
+                lambda: conv1d.causal_conv1d_launch(xbc, cw, cb, t),
+                reps=10, kernel="conv1d_silu"),
+        }
+    hand = summary["conv1d"][0]
+    phase = {
+        "phase": "planned_conv", "shape": [4, 2048, 5376],
+        "planned_tile_s": tile_s, "launches": launched,
+        "exact_vs_plain": exact, "max_abs_err": float(diff.max()),
+        "by_tile": {str(t): v for t, v in timed.items()},
+        "planned_over_256_device": (
+            timed[tile_s]["device_ms"] / timed[256]["device_ms"]
+            if all(isinstance(v["device_ms"], float) for v in timed.values())
+            else None),
+        "hand_picked": "mamba2_serve conv (tile 256)",
+        "hand_ms": hand["device_ms"],
+        "ms": timed[tile_s]["ms"], "device_ms": timed[tile_s]["device_ms"],
+        "plain_ms": None, "library_ms": None,
+        "bound_ms": hand["bound_ms"], "bound_by": hand["bound_by"],
+        "card": card_line,
+    }
+    emit(phase)
+    summary["conv1d"].append(phase)
+    del xbc, cw, cb, out, p_out, diff
+    torch.cuda.empty_cache()
+
     # -- summary ---------------------------------------------------------------
     rows = []
+    every_phase = [ph for phases in summary.values() for ph in phases]
     for name, phases in summary.items():
         head = phases[0]
 
@@ -1055,14 +1346,15 @@ def main() -> None:
             ln = ph["launches"]
             if name in ln:
                 return ln[name]
-            return sum(v[name] for v in ln.values() if name in v)
+            return sum(v[name] for v in ln.values()
+                       if isinstance(v, dict) and name in v)
 
         replaces, parts = REPLACES[name]
         rows.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{name}.cu",
             "replaces": replaces, "parts": parts,
-            "launches": sum(n_launch(ph) for ph in phases),
+            "launches": sum(n_launch(ph) for ph in every_phase),
             "max_abs_err": max(ph["max_abs_err"] for ph in phases),
             "ms": head["ms"], "device_ms": head.get("device_ms"),
             "plain_ms": head["plain_ms"],

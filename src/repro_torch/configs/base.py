@@ -42,7 +42,7 @@ class SSMCfg:
     pallas_conv: bool = False  # route the causal conv through the conv
                                # kernel (kernels.conv1d) when S > 1
     conv_tile: int | None = None  # tokens per block of the conv kernel;
-                                  # None -> the planner (not ported yet)
+                                  # None -> the planner
 
 
 @dataclass(frozen=True)

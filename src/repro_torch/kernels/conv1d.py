@@ -32,6 +32,7 @@ whose backward is plain torch math, as the reference's is plain jnp.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -46,7 +47,7 @@ __all__ = [
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_WIDTH = 4  # kMaxWidth of conv1d.cu: the kernel is unrolled per width
-_PLANNER = "ROADMAP.md queue A, item 8 (Hopper cost model and planner)"
+_RUN = 32  # kRun of conv1d.cu: tokens of one warp's run
 
 
 def _silu(acc: torch.Tensor) -> torch.Tensor:
@@ -253,6 +254,25 @@ class _ConvGrad(torch.autograd.Function):
         return dx.to(x.dtype), dw.to(conv_w.dtype), db.to(conv_b.dtype), None
 
 
+@functools.lru_cache(maxsize=512)
+def _planned_tile_s(seq: int, channels: int, width: int, dtype_bytes: int,
+                    hardware: tuple) -> int:
+    """Token tile from the plan compiler, as the reference's
+    ``_planned_tile_s``: the conv is a (S, C) grid with halo (W-1, 0), and
+    the tile is the plan's extent along S — rounded up to whole 32-token
+    runs, since the kernel's runs never cross a tile's end (so the tile
+    changes only the padding).  The planner's persistent cache and this
+    per-process memo make the serving-path repeat O(1)."""
+    from ..plan import default_planner
+
+    offs = tuple((-i, 0) for i in range(width))
+    plan = default_planner().plan(
+        shape=(seq, channels), offsets=(offs,), dtype_bytes=dtype_bytes,
+        n_operands=2, hardware=hardware,
+    )
+    return -(-int(plan.tile[0]) // _RUN) * _RUN
+
+
 def causal_conv1d(x, conv_w, conv_b, tile_s=None, state=None, device=None):
     """x: (B, S, C); conv_w: (W, C); conv_b: (C,).  Causal, silu-activated
     (matches ``models.ssm._causal_conv``).  ``state``: optional (B, W-1, C)
@@ -261,15 +281,18 @@ def causal_conv1d(x, conv_w, conv_b, tile_s=None, state=None, device=None):
     through the reference's custom VJP.
 
     Inputs (tensors or arrays) go to ``device``: ``None`` means the card,
-    ``"cpu"`` runs the plain version.  ``tile_s=None`` asks the planner,
-    which is not ported yet, and raises ``NotImplementedError``."""
-    if tile_s is None:
-        raise NotImplementedError(
-            f"causal_conv1d(tile_s=None): the planned tile is not in the "
-            f"port yet: {_PLANNER}; pass tile_s="
-        )
+    ``"cpu"`` runs the plain version.  ``tile_s=None`` asks the plan
+    compiler for the card the tensors are on (:func:`_planned_tile_s`)."""
     dev = resolve_device(device)
     x, conv_w, conv_b = (torch.as_tensor(t).to(dev) for t in (x, conv_w, conv_b))
+    if tile_s is None:
+        from ..core.tiling import H100_SXM
+        from .sweep import hopper_device
+
+        hw = hopper_device(dev) if dev.type == "cuda" else H100_SXM
+        tile_s = _planned_tile_s(int(x.shape[1]), int(x.shape[2]),
+                                 int(conv_w.shape[0]), x.element_size(),
+                                 hw.key())
     if state is None:
         return _ConvGrad.apply(x, conv_w, conv_b, int(tile_s))
     return causal_conv1d_launch(

@@ -9,14 +9,24 @@ stages and for every launch, T = 1 included, that carries a boundary
 condition, a stage dtype other than the input's or a quantized stage.
 
 The frontends keep the JAX package's names and signatures for what the
-port supports — an explicit ``tile=`` and ``sweep_axis=``, ``pipelined``,
-``time_steps``, ``stages``, ``program``, ``window_kind`` and ``dtypes`` —
-with the whole boundary menu (dirichlet, neumann, reflect, robin,
-periodic; per stage), f32/bf16 stage storage and int8-quantized stages.
-The planner, tune, trace and sharding arguments raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
-Every spelling lowers through the port's stencil-program IR, as the
-reference does, so the launches equal the reference's.
+port supports — ``tile=`` (or ``None``: the planner), ``sweep_axis=``,
+``plan=``, ``vmem_budget=``, ``pipelined``, ``time_steps``, ``stages``,
+``program``, ``window_kind`` and ``dtypes`` — with the whole boundary menu
+(dirichlet, neumann, reflect, robin, periodic; per stage), f32/bf16 stage
+storage and int8-quantized stages.  The tune, trace and sharding
+arguments raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
+that brings them.  Every spelling lowers through the port's
+stencil-program IR, as the reference does, so the launches equal the
+reference's.
+
+Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
+:class:`~repro_torch.plan.PlanCache` keeps plans across processes)
+decides the tile, the sweep axis, the window kind and how many stages
+one launch fuses, for the card the tensors are on; a chain whose fused
+depth is below T runs ``ceil(T / depth)`` launches, handing each launch's
+output (int8 codes for a quantized stage) to the next.  (The launch-table
+cache of :mod:`repro_torch.kernels.sweep`, ``_PLANS``, is another thing:
+it keeps one launch's C arrays.)
 
 The entry points run on the card: ``device=None`` means ``"cuda"``, and
 ``device="cpu"`` runs each kernel's plain PyTorch version (the tests).
@@ -30,8 +40,13 @@ import numpy as np
 import torch
 
 from .. import ir, resolve_device
-from ..core.tiling import chain_halo, halo_from_offsets, stage_suffix_halos
-from .sweep import sweep_apply, sweep_chain
+from ..core.tiling import (
+    H100_SXM,
+    chain_halo,
+    halo_from_offsets,
+    stage_suffix_halos,
+)
+from .sweep import hopper_device, sweep_apply, sweep_chain
 
 __all__ = [
     "stencil_pallas",
@@ -51,7 +66,6 @@ def _later(what: str, item: str) -> NotImplementedError:
     )
 
 
-_PLANNER = "item 8 (Hopper cost model and planner)"
 _TUNE = "item 9 (measured tune loop)"
 _OBS = "item 10 (telemetry)"
 _SHARD = "item 11 (column sharding)"
@@ -275,6 +289,42 @@ def _as_tensors(us, device) -> tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
+def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
+               vmem_budget=None, time_steps=1, stages=None, bcs=None,
+               dtypes=None, window_kind="auto"):
+    """Plan for an un-tiled call — the reference's ``_auto_tile`` over the
+    port's planner, for the card ``dev`` (the published H100 figures for a
+    CPU tensor).  ``offsets_list`` and ``stages`` are per-RHS and per-stage
+    offset tuples (weights stripped, so the plan is weight-independent);
+    a repeated call is answered from the planner's memo of calls."""
+    from ..plan import default_planner
+
+    hardware = hopper_device(dev) if dev.type == "cuda" else H100_SXM
+    signature = (shape, tuple(offsets_list), dtype_bytes, n_arrays,
+                 hardware, vmem_budget, time_steps,
+                 None if stages is None else tuple(stages), bcs, dtypes,
+                 window_kind)
+    d = len(shape)
+    kw = dict(
+        shape=shape,
+        dtype_bytes=dtype_bytes,
+        vmem_budget=vmem_budget,
+        n_operands=n_arrays + 1,
+        window_kind=window_kind,
+        hardware=hardware,
+    )
+    if stages is not None:
+        kw["stages"] = [np.asarray(o).reshape(-1, d) for o in stages]
+        if bcs is not None and any(bc is not None for bc in bcs):
+            kw["bcs"] = tuple(bcs)
+        if dtypes is not None and any(dt is not None for dt in dtypes):
+            kw["dtypes"] = tuple(dtypes)
+    else:
+        kw["offsets"] = [np.asarray(o).reshape(-1, d) for o in offsets_list]
+        kw["time_steps"] = time_steps
+    return default_planner().plan_call(signature, **kw)
+
+
 def stencil_pallas(
     u,
     offsets: np.ndarray,
@@ -296,9 +346,13 @@ def stencil_pallas(
 ) -> torch.Tensor:
     """Single-array weighted stencil, zero boundary fill (matches ref).
 
-    ``time_steps=T > 1`` applies the stencil T times in one fused launch
-    (explicit ``tile``); ``dtypes=`` gives each application's storage
-    dtype.  ``device=None`` runs on the card."""
+    ``time_steps=T > 1`` applies the stencil T times (one fused launch at
+    an explicit ``tile``; as many as the plan says without one);
+    ``dtypes=`` gives each application's storage dtype.  ``plan`` (a
+    :class:`~repro_torch.plan.StencilPlan`) decides tile, sweep axis,
+    window kind and fusion depth when given; otherwise ``tile=None`` asks
+    the default planner, under ``vmem_budget`` bytes of shared memory per
+    CTA.  ``device=None`` runs on the card."""
     return multi_stencil_pallas(
         [u], [offsets], [weights], tile=tile, vmem_budget=vmem_budget,
         sweep_axis=sweep_axis, pipelined=pipelined, plan=plan,
@@ -334,7 +388,7 @@ def stencil_iterate(
     times (Jacobi sweeps); ``stencil_iterate(u, stages=[(offsets_1,
     weights_1), ...])`` runs a distinct operator per stage (Runge-Kutta
     sub-steps, damped-Jacobi pairs).  With an explicit ``tile`` the whole
-    chain is one fused launch."""
+    chain is one fused launch; a plan may split it into several."""
     kw = dict(
         tile=tile, vmem_budget=vmem_budget, sweep_axis=sweep_axis,
         pipelined=pipelined, plan=plan, num_shards=num_shards,
@@ -385,27 +439,23 @@ def multi_stencil_pallas(
     ``offsets_list``/``stages=``/``time_steps=`` arguments build the
     equivalent :class:`repro_torch.ir.Program`, or ``program`` passes one
     (or its serialized JSON) directly, with ``us`` in
-    ``program.inputs()`` order.  A chain runs as one fused launch at the
-    explicit ``tile``; ``window_kind`` (``"ring"``, the default, or
-    ``"trapezoid"``) picks the frontier layout and never changes the
-    result.  ``dtypes=[dt_1, ..., dt_T]`` (single-RHS chains only)
-    declares each stage's output dtype (``None`` = the input's); a program
-    carries its boundaries, dtypes and quantizations on its ops.
+    ``program.inputs()`` order.  A chain runs as one fused launch at an
+    explicit ``tile``, or as ``ceil(T / plan.fused_depth)`` launches under
+    a plan (``plan=``, or the default planner's for ``tile=None``);
+    ``window_kind`` (``"ring"``, the default, or ``"trapezoid"``) picks
+    the frontier layout and never changes the result.  ``dtypes=[dt_1,
+    ..., dt_T]`` (single-RHS chains only) declares each stage's output
+    dtype (``None`` = the input's); a program carries its boundaries,
+    dtypes and quantizations on its ops.
     ``device=None`` runs on the card, ``device="cpu"`` runs the kernels'
     plain versions."""
     if trace is not None:
         raise _later("trace=", _OBS)
     if tune:
         raise _later("tune=", _TUNE)
-    if plan is not None:
-        raise _later("plan=", _PLANNER)
-    if vmem_budget is not None:
-        raise _later("vmem_budget=", _PLANNER)
     if (num_shards is not None and int(num_shards) > 1) or mesh is not None \
             or shard_axis is not None:
         raise _later("num_shards=/mesh=/shard_axis=", _SHARD)
-    if tile is None:
-        raise _later("tile=None (planned tiles)", _PLANNER)
     if window_kind is not None and window_kind not in ("ring", "trapezoid"):
         raise ValueError(
             f"window_kind must be 'ring' or 'trapezoid', got {window_kind!r}"
@@ -477,10 +527,6 @@ def multi_stencil_pallas(
             prog = ir.rhs_program(offsets_list, weights_list, d=d)
     # -- verify + lower onto the engine's launch form ----------------------
     lowered = ir.lower(prog, shape)
-    tile = tuple(int(t) for t in tile)
-    sweep_axis = 0 if sweep_axis is None else int(sweep_axis)
-    window_kind = window_kind or "ring"
-    pipelined = bool(pipelined)
 
     def static_spec(op):
         offs, wts = op
@@ -498,36 +544,111 @@ def multi_stencil_pallas(
         bcs = tuple(lowered.bcs)
         # Per-stage output dtypes resolved against the chain input, as the
         # reference resolves ``eff``: a stage at the input dtype is the
-        # same launch as one without a dtype.
+        # same launch as one without a dtype; ``req_dtypes`` is the
+        # None-normalized form the plan stack keys on.
         in_name = _dtype_name(us[0].dtype)
         eff = tuple(
             _dtype_name(dt) if dt is not None else in_name
             for dt in (lowered.dtypes or (None,) * T)
         )
-        if all(dt == in_name for dt in eff):
-            eff = None
+        req_dtypes = tuple(dt if dt != in_name else None for dt in eff)
+        if all(dt is None for dt in req_dtypes):
+            eff = req_dtypes = None
         quants = tuple(lowered.quants or (None,) * T)
-        has_bc = any(bc is not None for bc in bcs)
-        if T == 1 and not has_bc and eff is None:
-            return _stencil_call(us, (chain[0],), tile, sweep_axis,
-                                 pipelined)
-        # A chain, or a boundary, mixed-dtype or quantized launch: the
-        # chain form even for one stage (a quantized stage has dtype int8,
-        # so it lands here through ``eff``).
-        return _stencil_call(
-            us, (chain[0],), tile, sweep_axis, pipelined, stages_w=chain,
-            bcs_w=bcs if has_bc else None, dtypes_w=eff,
-            window_kind=window_kind,
-            quants_w=quants if any(q is not None for q in quants) else None,
+        offsets_list = [chain[0][0]]
+    else:
+        # multi-RHS single application: ``us`` arrives in load order;
+        # stage p applies to lowered.inputs[p].
+        if len(us) != len(lowered.inputs):
+            raise ValueError(
+                f"program loads {len(lowered.inputs)} inputs; got "
+                f"{len(us)} arrays"
+            )
+        load_order = {name: i for i, name in enumerate(prog.inputs())}
+        us = tuple(us[load_order[name]] for name in lowered.inputs)
+        offsets_w = tuple(static_spec(op) for op in lowered.stages)
+        chain = None
+        bcs = ()
+        T = 1
+        req_dtypes = None
+        offsets_list = [o for o, _ in offsets_w]
+    # -- the launch decision: explicit tile, precompiled plan, or planner --
+    depth = None
+    if plan is not None:
+        from ..plan import validate_plan_call
+
+        validate_plan_call(
+            plan, shape,
+            [np.asarray(o, dtype=np.int64).reshape(-1, d)
+             for o in offsets_list],
+            us[0].element_size(), time_steps=T,
+            stages=[o for o, _ in chain] if chain is not None else None,
+            bcs=bcs if chain is not None else None,
+            dtypes=req_dtypes if chain is not None else None,
         )
-    # multi-RHS single application: ``us`` arrives in load order; stage p
-    # applies to lowered.inputs[p].
-    if len(us) != len(lowered.inputs):
-        raise ValueError(
-            f"program loads {len(lowered.inputs)} inputs; got "
-            f"{len(us)} arrays"
+        if tile is None:
+            tile = plan.tile
+        if sweep_axis is None:
+            sweep_axis = plan.sweep_axis
+        if window_kind is None:
+            window_kind = plan.window_kind
+        pipelined = pipelined and plan.pipelined
+        depth = plan.fused_depth
+    elif tile is None:
+        choice = _auto_tile(
+            shape, offsets_list, us[0].element_size(), len(us),
+            us[0].device, vmem_budget=vmem_budget, time_steps=T,
+            stages=[o for o, _ in chain] if chain is not None else None,
+            bcs=bcs if chain is not None else None,
+            dtypes=req_dtypes if chain is not None else None,
+            window_kind=window_kind or "auto",
         )
-    load_order = {name: i for i, name in enumerate(prog.inputs())}
-    us = tuple(us[load_order[name]] for name in lowered.inputs)
-    offsets_w = tuple(static_spec(op) for op in lowered.stages)
-    return _stencil_call(us, offsets_w, tile, sweep_axis, pipelined)
+        tile = choice.tile
+        if sweep_axis is None:
+            sweep_axis = choice.sweep_axis
+        if window_kind is None:
+            window_kind = choice.window_kind
+        depth = choice.fused_depth
+    tile = tuple(int(t) for t in tile)
+    sweep_axis = 0 if sweep_axis is None else int(sweep_axis)
+    window_kind = window_kind or "ring"
+    pipelined = bool(pipelined)
+    if depth is None:
+        depth = T  # explicit tile: the whole chain in one launch
+
+    if chain is None:
+        return _stencil_call(us, offsets_w, tile, sweep_axis, pipelined)
+    # The run loop: launch i fuses stages [i·depth, (i+1)·depth); a launch
+    # with a boundary, a stage dtype or a quantized stage takes the chain
+    # form even for one stage, and a quantized hand-off reaches the next
+    # launch as int8 codes with its quantization (``in_quant``).
+    arrays = us
+    pos = 0
+    in_q = None
+    while True:
+        run = chain[pos: pos + int(depth)]
+        run_bcs = bcs[pos: pos + len(run)]
+        run_dts = eff[pos: pos + len(run)] if eff is not None else None
+        run_qs = quants[pos: pos + len(run)]
+        pos += len(run)
+        has_bc = any(bc is not None for bc in run_bcs)
+        if has_bc or run_dts is not None:
+            result = _stencil_call(
+                arrays, (run[0],), tile, sweep_axis, pipelined,
+                stages_w=run, bcs_w=run_bcs if has_bc else None,
+                dtypes_w=run_dts, window_kind=window_kind,
+                quants_w=(run_qs if any(q is not None for q in run_qs)
+                          else None),
+                in_quant=in_q,
+            )
+        elif len(run) == 1:
+            result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
+                                   pipelined)
+        else:
+            result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
+                                   pipelined, stages_w=run,
+                                   window_kind=window_kind)
+        if pos == len(chain):
+            return result
+        arrays = (result,)
+        in_q = run_qs[-1]

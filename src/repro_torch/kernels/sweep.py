@@ -27,6 +27,9 @@ import numpy as np
 import torch
 
 from ..core.tiling import (
+    H100_SXM,
+    SMEM_BLOCK_LIMIT,
+    HopperDevice,
     apply_smem_bytes,
     chain_halo,
     frontier_depth,
@@ -42,6 +45,7 @@ __all__ = [
     "chain_occupancy",
     "chain_points",
     "chain_schedule",
+    "hopper_device",
     "sweep_apply",
     "sweep_apply_plain",
     "sweep_chain",
@@ -942,3 +946,43 @@ def chain_points(stages, tile, sweep, window_kind, out_shape) -> list[int]:
             )
             pts[j] += steps * cols * (r1 - r0) * plane
     return pts
+
+
+_DEVICES: dict = {}
+
+
+def hopper_device(dev) -> HopperDevice:
+    """The cost model's description of CUDA device ``dev``, read once per
+    device: SMs, shared memory per SM and L2 from
+    ``torch.cuda.get_device_properties``, the HBM rate from its memory
+    clock and bus width (the published H100 figure where this PyTorch does
+    not report them), and each sweep kernel's most resident CTAs from its
+    occupancy query at no dynamic shared memory (which builds the kernels
+    on first use)."""
+    dev = torch.device(dev)
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    desc = _DEVICES.get(idx)
+    if desc is None:
+        p = torch.cuda.get_device_properties(idx)
+        clock_khz = getattr(p, "memory_clock_rate", 0)
+        bus_bits = getattr(p, "memory_bus_width", 0)
+        rate = (2 * clock_khz * 1e3 * bus_bits / 8 if clock_khz and bus_bits
+                else H100_SXM.hbm_bytes_per_s)
+        with torch.cuda.device(idx):
+            apply_ctas = apply_occupancy(torch.float32, 2, 0)
+            chain_ctas = chain_occupancy(torch.float32, 0)
+        desc = HopperDevice(
+            name=p.name,
+            sm_count=p.multi_processor_count,
+            smem_per_block=SMEM_BLOCK_LIMIT,
+            smem_per_sm=getattr(p, "shared_memory_per_multiprocessor",
+                                H100_SXM.smem_per_sm),
+            l2_bytes=p.L2_cache_size,
+            hbm_bytes_per_s=float(rate),
+            apply_threads=APPLY_THREADS,
+            apply_ctas_per_sm=apply_ctas,
+            chain_threads=CHAIN_THREADS,
+            chain_ctas_per_sm=chain_ctas,
+        )
+        _DEVICES[idx] = desc
+    return desc

@@ -29,7 +29,9 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import conv1d as jconv  # noqa: E402
+from repro_torch.core.tiling import H100_SXM  # noqa: E402
 from repro_torch.kernels import conv1d as tconv  # noqa: E402
+from repro_torch.plan import PlanCache, Planner, planner  # noqa: E402
 
 TOL = {
     "float32": dict(atol=1e-6, rtol=1e-6),
@@ -142,10 +144,20 @@ def test_vjp_matches_jax_grad(width, dtype):
             err_msg=name, **tol)
 
 
-def test_planned_tile_is_not_ported_yet():
-    x, w, bias, _ = _inputs(1, 8, 4, 4, False)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tconv.causal_conv1d(x, w, bias, device="cpu")
+@pytest.mark.parametrize("with_state", [False, True])
+def test_planned_tile_equals_explicit_tile(with_state, monkeypatch):
+    """``tile_s=None`` plans the (S, C) grid with halo (W-1, 0), as the
+    reference's ``_planned_tile_s`` does, rounded up to the kernel's
+    32-token runs; the result does not depend on the tile."""
+    monkeypatch.setattr(planner, "_DEFAULT",
+                        Planner(cache=PlanCache(persistent=False)))
+    x, w, bias, state = _inputs(2, 37, 24, 4, with_state)
+    planned = tconv._planned_tile_s(37, 24, 4, 4, H100_SXM.key())
+    assert planned % tconv._RUN == 0
+    got = tconv.causal_conv1d(x, w, bias, state=state, device="cpu")
+    want = tconv.causal_conv1d(x, w, bias, tile_s=8, state=state,
+                               device="cpu")
+    assert torch.equal(got, want)
 
 
 def test_plain_version_refuses_bad_shapes():

@@ -882,3 +882,51 @@ def test_mamba2_smoke_model_on_the_card_equals_the_cpu(dev, dtype):
     else:
         tol = dict(atol=2.0 ** -7 * float(want.abs().max()), rtol=2.0 ** -7)
     torch.testing.assert_close(logits["cuda"], want, **tol)
+
+
+# -- planned launches -------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [
+    ("apply", (40, 48, 64), 1), ("chain", (40, 48, 64), 3),
+    ("rhs", (24, 40, 64), 1), ("int8", (24, 40, 64), 3),
+])
+def test_planned_launch_equals_the_plain_version(case, dev, monkeypatch):
+    """``tile=None`` on the card: the plan is made for this card's
+    description (``sweep.hopper_device``), the launches run the kernels,
+    and the result equals the same plan's launches on the CPU."""
+    from repro_torch.kernels import ref
+    from repro_torch.plan import PlanCache, Planner, planner
+
+    kind, shape, T = case
+    rec = Planner(cache=PlanCache(persistent=False))
+    monkeypatch.setattr(planner, "_DEFAULT", rec)
+    desc = sweep.hopper_device(dev)
+    assert desc.apply_ctas_per_sm >= 1 and desc.chain_ctas_per_sm >= 1
+    assert desc.smem_per_sm >= desc.smem_per_block
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal(shape).astype(np.float32)
+    o13, w13 = ref.star_weights_2nd_order(3, 2)
+    before = sweep.sweep_apply.launches + sweep.sweep_chain.launches
+    if kind == "rhs":
+        y = rng.standard_normal(shape).astype(np.float32)
+        args = ([x, y], [o13, o13[::-1]], [w13, w13[::-1]])
+        got = st.multi_stencil_pallas(*args)
+    elif kind == "int8":
+        prog = ir.chain_program([(o13, w13)] * T, 3, boundary="reflect",
+                                quants=[(0.02, 3)] * (T - 1) + [None])
+        got = ir.run_program(prog, x * 0.3)
+    else:
+        got = st.stencil_iterate(x, o13, w13, T)
+    launched = (sweep.sweep_apply.launches + sweep.sweep_chain.launches
+                - before)
+    ((key, plan),) = rec.cache._mem.items()
+    assert plan.request.hardware == desc.key()
+    assert launched == -(-plan.time_steps // plan.fused_depth)
+    if kind == "rhs":
+        want = st.multi_stencil_pallas(*args, plan=plan, device="cpu")
+    elif kind == "int8":
+        want = ir.run_program(prog, x * 0.3, plan=plan, device="cpu")
+    else:
+        want = st.stencil_iterate(x, o13, w13, T, plan=plan, device="cpu")
+    assert _same_bits(got.cpu(), want)

@@ -734,9 +734,9 @@ def test_plain_path_counts_no_launch():
 
 
 @pytest.mark.parametrize("call", [
-    dict(tile=None), dict(plan=object()), dict(tune=True),
-    dict(num_shards=2), dict(trace="t.json"), dict(vmem_budget=1 << 20),
-    dict(mesh=object()),
+    dict(tune=True), dict(num_shards=2), dict(trace="t.json"),
+    dict(mesh=object()), dict(tile=None, num_shards=2),
+    dict(tile=None, shard_axis=1), dict(tile=None, tune=True),
 ])
 def test_arguments_outside_the_slice_name_their_roadmap_item(call):
     kw = dict(tile=(4, 8, 8), sweep_axis=0, device="cpu")
