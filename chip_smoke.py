@@ -51,6 +51,27 @@ points at full size:
   plan (smem per CTA, CTAs per SM, waves, ``modeled_ms``) beside the
   measured time and the hand-picked phase's from the same run, and holds
   the output bit-equal to the same launches run by the plain versions;
+* ``tuned_apply_f32_512``, ``tuned_chain_T3_512``, ``tuned_chain_int8_512``,
+  ``tuned_apply_bf16_p2_256`` — the same calls with ``tune=True`` (the
+  default tuner: the planner's top 4 candidates, and for an undtyped
+  chain its advisory bf16 and int8 storage variants, raced with 1 warm-up
+  and 5 timed calls each): each prints the candidate table (modelled
+  against measured ms), the winner's rank, ``speedup_vs_analytic``,
+  ``rank_correlation`` and the race's seconds; holds the output bit-equal
+  to the same launches on the plain versions; checks that the first call
+  measured and that the warm call counts one ``tunedb_hit``, measures
+  nothing, launches nothing while it plans and plans in under 1 ms of host
+  time (median of 20 calls); and re-measures the winner against the
+  analytic plan in 6 alternating rounds (``tuned_over_analytic``, the
+  median ratio, at most 1.05).  Plans and tuned records go to fresh
+  directories of the run, never to the home directory;
+* ``traced_calls`` — ``apply_f32_512``'s call and the planned int8 chain
+  with ``trace=`` under ``torch.profiler``: the trace passes
+  ``validate_trace``, reconciles (``report.reconcile`` and ``python -m
+  repro_torch.obs.report --check``), its ``kernel_launch`` spans equal the
+  wrappers' launch counts, and each span's ``record_function`` range
+  holds the one sweep kernel it launched; with the apply call's time
+  untraced and traced;
 * ``unfavorable_sweep`` — the planned 13-point star on n × n × 256 f32
   grids, n = 500..516, at the planned and at a fixed tile, ns per point
   beside whether the paper's §6 criterion flags the grid under the
@@ -95,10 +116,12 @@ CUDA, or outside a checkout, it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from math import prod
 from pathlib import Path
@@ -141,19 +164,28 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from the "
              "root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    # Plans and tuned records go to fresh directories of this run, removed
+    # at exit: the first tuned call must measure, and nothing is read
+    # from (or left in) the home directory.
+    state = tempfile.TemporaryDirectory(prefix="chip_smoke-")
+    os.environ["REPRO_TORCH_PLAN_CACHE_DIR"] = os.path.join(state.name,
+                                                            "plans")
+    os.environ["REPRO_TORCH_TUNED_DB_DIR"] = os.path.join(state.name,
+                                                          "tuned")
 
     import dataclasses
 
     import numpy as np
     import torch.nn.functional as F
 
-    from repro_torch import convert, ir
+    from repro_torch import convert, ir, obs
     from repro_torch.core.cache_fitting import star_stencil
     from repro_torch.core.tiling import apply_smem_bytes, sweep_smem_bytes
     from repro_torch.kernels import _build, conv1d, ref, sweep
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.ops import apply_star_2nd_order
-    from repro_torch.plan import default_planner
+    from repro_torch.obs.report import reconcile, summarize
+    from repro_torch.plan import default_planner, resolve_tuner
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1226,6 +1258,267 @@ def main() -> None:
     del out, hand_out, us
     torch.cuda.empty_cache()
 
+    # -- tuned phases: tune=True through the measured tune loop ------------
+    # Each makes the call of a planned phase with tune=True (the default
+    # tuner: k=4, reps=5, warmup=1, records in this run's directory).  The
+    # first call races the candidates on the kernels and serves the
+    # winner; the output equals the same launches on the plain versions;
+    # the warm call serves the record without measuring; the winner is
+    # re-measured against candidate 0 (the analytic plan) in alternating
+    # rounds, since one call's spread reaches 13% (PERF.md §7).
+    gates: list = []
+
+    def tuned_phase(name, call, kernel, extra=None):
+        """``call(**kw)`` is the user's call; ``kw`` adds ``tune=True`` or
+        a ``plan=``."""
+        tuner = resolve_tuner(True, dev)
+        reset()
+        t0 = time.perf_counter()
+        out = call(tune=True)
+        torch.cuda.synchronize()
+        race_s = time.perf_counter() - t0
+        first = counts()
+        rec = tuner.last_record
+        measured_first = not tuner.last_plan_tuned
+        assert rec is not None and rec.never_slower, name
+        plain = plain_versions(lambda: call(tune=True))
+        exact = bits_equal(out, plain)
+        err = max_err(out, plain)
+        assert exact, (name, err)
+        del plain
+        # The warm call, traced: one tunedb_hit, no measurement, and no
+        # launch while the tuner plans.
+        plan_fn = tuner.plan
+        in_plan = []
+
+        def watched(*a, **kw):
+            before = counts()
+            t = time.perf_counter()
+            p_ = plan_fn(*a, **kw)
+            in_plan.append(((time.perf_counter() - t) * 1e3,
+                            sum(counts().values()) - sum(before.values())))
+            return p_
+
+        tuner.plan = watched
+        try:
+            reset()
+            with obs.recording() as rec_obs:
+                call(tune=True)
+            torch.cuda.synchronize()
+            warm = counts()
+            warm_counters = dict(rec_obs.counters)
+            warm_measured = sum(1 for sp in rec_obs.spans
+                                if sp.name == "measure")
+            in_plan.clear()
+            for _ in range(20):
+                call(tune=True)
+            torch.cuda.synchronize()
+        finally:
+            tuner.plan = plan_fn
+        warm_ms = [ms for ms, _ in in_plan]
+        warm_ok = (tuner.last_plan_tuned
+                   and warm_counters.get("tunedb_hit") == 1
+                   and "tunedb_miss" not in warm_counters
+                   and warm_measured == 0
+                   and all(n == 0 for _, n in in_plan)
+                   and statistics.median(warm_ms) < 1.0)
+        # tuned over analytic: alternating rounds of the two plans.
+        winner = rec.winner_plan
+        analytic = tuner.planner._analytic(winner.request)
+        ratios = []
+        for i in range(6):
+            order = (("w", winner), ("a", analytic))
+            times = {}
+            for label, pl in (order if i % 2 == 0 else order[::-1]):
+                times[label] = time_ms(lambda: call(plan=pl), reps=5,
+                                       warmup=1)
+            ratios.append(times["w"] / times["a"])
+        tuned_over = statistics.median(ratios)
+        ok = (exact and measured_first and warm_ok and tuned_over <= 1.05)
+        gates.append((name, ok))
+        rows_ = [{
+            "tile": list(c.tile), "sweep_axis": c.sweep_axis,
+            "fused_depth": c.fused_depth, "window_kind": c.window_kind,
+            "stage_dtypes": (list(c.stage_dtypes) if c.stage_dtypes
+                             else None),
+            "advisory": c.advisory, "modeled_ms": c.modeled_ms,
+            "median_ms": c.median_s * 1e3, "iqr_ms": c.iqr_s * 1e3,
+            "modeled_over_measured": c.modeled_ms / (c.median_s * 1e3),
+        } for c in rec.candidates]
+        phase = {
+            "phase": name, "shape": list(out.shape),
+            "launches": {"first_call": first, "warm_call": warm},
+            "candidates": rows_, "winner_rank": rec.winner,
+            "winner_is_analytic": rec.winner == 0,
+            "speedup_vs_analytic": rec.speedup_vs_analytic,
+            "rank_correlation": rec.rank_correlation,
+            "race_s": race_s, "first_call_measured": measured_first,
+            "fingerprint": rec.fingerprint,
+            "exact_vs_plain": exact, "max_abs_err": err,
+            "warm_plan_host_ms": statistics.median(warm_ms),
+            "warm_plan_host_ms_max": max(warm_ms),
+            "warm_tunedb_hit": warm_counters.get("tunedb_hit", 0),
+            "warm_measure_spans": warm_measured,
+            "warm_launches_in_planning": max(n for _, n in in_plan),
+            "tuned_over_analytic": tuned_over,
+            "tuned_over_analytic_rounds": ratios,
+            "gates_ok": ok, "kernel": kernel, "card": card_line,
+        }
+        phase.update(extra or {})
+        emit(phase)
+        del out
+        torch.cuda.empty_cache()
+        return phase
+
+    gen.manual_seed(0)
+    u = torch.randn(big, generator=gen, device=dev)
+    phase = tuned_phase(
+        "tuned_apply_f32_512",
+        lambda **kw: st.stencil_pallas(u, offs13, w13, **kw), "sweep_apply")
+    phase.update(**bound(big, 4, 4, 1, [len(w13)]), library_ms=None,
+                 plain_ms=None, ms=None)
+    summary["sweep_apply"].append(phase)
+
+    gen.manual_seed(2)
+    u = torch.randn(big, generator=gen, device=dev)
+    phase = tuned_phase(
+        "tuned_chain_T3_512",
+        lambda **kw: st.stencil_iterate(u, offs13, w13, 3, **kw),
+        "sweep_apply, sweep_chain (advisory variants)")
+    assert {tuple(c["stage_dtypes"] or ()) for c in phase["candidates"]} \
+        >= {("bfloat16", "bfloat16", None), ("int8", "int8", None)}, phase
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3), library_ms=None,
+                 plain_ms=None, ms=None)
+    summary["sweep_chain"].append(phase)
+    del u
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(4)
+    u8 = torch.randn(big, generator=gen, device=dev) * 0.01
+    prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="reflect",
+                            quants=[q, q, None])
+    phase = tuned_phase(
+        "tuned_chain_int8_512",
+        lambda **kw: ir.run_program(prog, u8, **kw), "sweep_chain")
+    # A dtyped request is its own dtype assignment: no dtype variant races.
+    assert not any(c["advisory"] for c in phase["candidates"]), phase
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3), library_ms=None,
+                 plain_ms=None, ms=None)
+    summary["sweep_chain"].append(phase)
+    del u8
+    torch.cuda.empty_cache()
+
+    gen.manual_seed(1)
+    us = [torch.randn((256,) * 3, generator=gen, device=dev).to(
+        torch.bfloat16) for _ in range(2)]
+    phase = tuned_phase(
+        "tuned_apply_bf16_p2_256",
+        lambda **kw: st.multi_stencil_pallas(us, [offs13, offs7],
+                                             [w13, w7], **kw),
+        "sweep_apply")
+    phase.update(**bound((256,) * 3, 2, 2, 2, [len(w13) + len(w7)]),
+                 library_ms=None, plain_ms=None, ms=None)
+    summary["sweep_apply"].append(phase)
+    del us
+    torch.cuda.empty_cache()
+
+    # -- traced_calls: trace= under torch.profiler -----------------------------
+    # apply_f32_512's call and the planned int8 chain, each with trace=.
+    # The trace passes validate_trace and reconciles; its kernel_launch
+    # spans equal the wrappers' launch counts; and each span's
+    # record_function range holds the sweep kernel it launched in the
+    # profiler's trace.  Span durations are host time (the enqueue), never
+    # read as kernel time here.
+    from torch.profiler import ProfilerActivity, profile
+
+    trace_dir = Path(state.name)
+
+    def traced(name, call):
+        path = str(trace_dir / f"{name}.json")
+        prof_path = str(trace_dir / f"{name}.prof.json")
+        call()
+        torch.cuda.synchronize()
+        reset()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call(trace=path)
+            torch.cuda.synchronize()
+        launched = counts()
+        prof.export_chrome_trace(prof_path)
+        doc = obs.load_trace(path)   # validate_trace on the way in
+        summ = summarize(doc)
+        problems = reconcile(summ)
+        n_spans = len(summ["launches"])
+        with open(prof_path) as fh:
+            events = json.load(fh)["traceEvents"]
+        held = spans_hold_kernels(events)
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", path,
+             "--check"],
+            env={**os.environ, "PYTHONPATH": str(SRC)},
+            capture_output=True, text=True, timeout=300)
+        ok = (not problems and n_spans == sum(launched.values())
+              and cli.returncode == 0
+              and held.get("every_span_holds_its_kernel") is True)
+        gates.append((name, ok))
+        return {
+            "call": name, "launches": launched, "kernel_launch_spans": n_spans,
+            "reconcile_problems": problems, "report_check_rc": cli.returncode,
+            "counters": summ["counters"], "plan_spans": summ["n_plan_spans"],
+            "span_kernels": held, "ok": ok,
+        }
+
+    def spans_hold_kernels(events) -> dict:
+        """Match each ``kernel_launch`` range of the profiler's trace to the
+        device kernels it launched: the ``cudaLaunchKernel`` calls inside
+        the range, and the kernels of their correlation ids."""
+        ranges = [e for e in events if e.get("name") == "kernel_launch"
+                  and e.get("ph") == "X"
+                  and e.get("cat") == "user_annotation"]
+        if not ranges:
+            return {"not_measured": "no kernel_launch range in the "
+                    "profiler's trace"}
+        on_device = sum(1 for e in events if e.get("name") == "kernel_launch"
+                        and e.get("cat") == "gpu_user_annotation")
+        by_corr = {(k.get("args") or {}).get("correlation"): k["name"]
+                   for k in events if k.get("cat") == "kernel"}
+        launches = [e for e in events if e.get("cat") == "cuda_runtime"
+                    and "LaunchKernel" in e.get("name", "")]
+        rows = []
+        for r in ranges:
+            t0_, t1_ = r["ts"], r["ts"] + r["dur"]
+            names = [by_corr.get((e.get("args") or {}).get("correlation"), "")
+                     for e in launches if t0_ <= e["ts"] <= t1_]
+            rows.append([n for n in names if "sweep_" in n])
+        return {
+            "ranges": len(ranges), "device_side_ranges": on_device,
+            "sweep_kernels_per_range": [len(r) for r in rows],
+            "kernel_names": sorted({n[:60] for r in rows for n in r}),
+            "every_span_holds_its_kernel": all(len(r) == 1 for r in rows),
+        }
+
+    gen.manual_seed(0)
+    u = torch.randn(big, generator=gen, device=dev)
+    apply_call = lambda **kw: st.stencil_pallas(  # noqa: E731
+        u, offs13, w13, tile=(8, 16, 32), sweep_axis=0, **kw)
+    apply_traced = traced("apply_f32_512", apply_call)
+    untraced_ms = time_ms(apply_call, reps=10)
+    traced_ms = time_ms(
+        lambda: apply_call(trace=str(trace_dir / "timed.json")), reps=10)
+    del u
+    torch.cuda.empty_cache()
+    gen.manual_seed(4)
+    u8 = torch.randn(big, generator=gen, device=dev) * 0.01
+    chain_traced = traced(
+        "planned_chain_int8_512",
+        lambda **kw: ir.run_program(prog, u8, **kw))
+    del u8
+    torch.cuda.empty_cache()
+    emit({"phase": "traced_calls", "calls": [apply_traced, chain_traced],
+          "apply_untraced_call_ms": untraced_ms,
+          "apply_traced_call_ms": traced_ms,
+          "trace_cost_ms": traced_ms - untraced_ms, "card": card_line})
+
     # unfavorable_sweep: the paper's question on this card.  The planned
     # 13-point star on n × n × 256 f32 grids, n = 500..516, timed (the
     # kernel alone, CUDA events) at the planned tile and at the fixed
@@ -1335,6 +1628,10 @@ def main() -> None:
     summary["conv1d"].append(phase)
     del xbc, cw, cb, out, p_out, diff
     torch.cuda.empty_cache()
+
+    failed = [name for name, ok in gates if not ok]
+    if failed:
+        fail(f"tuned/traced gates failed: {failed}")
 
     # -- summary ---------------------------------------------------------------
     rows = []

@@ -53,6 +53,7 @@ __all__ = [
     "chain_halo",
     "dtype_itemsize",
     "frontier_depth",
+    "frontier_smem_bytes",
     "fused_halo",
     "halo_from_offsets",
     "launch_model",
@@ -162,6 +163,28 @@ def _align16(n: int) -> int:
     return -(-int(n) // 16) * 16
 
 
+def frontier_smem_bytes(
+    tile: Sequence[int],
+    sweep_axis: int,
+    stage_halos: Sequence[Sequence[tuple[int, int]]],
+    window_kind: str = "ring",
+) -> int:
+    """The frontier part of a chain CTA's shared memory, in bytes: one f32
+    frontier per intermediate stage j (0 for a single stage), its cross
+    extents ``tile + suffix halo`` times :func:`frontier_depth` rows, each
+    rounded up to 16 bytes — what :func:`sweep_smem_bytes` adds to the
+    input ring."""
+    d = len(tile)
+    s = int(sweep_axis)
+    suffix = stage_suffix_halos(stage_halos)
+    total = 0
+    for j in range(len(stage_halos) - 1):
+        ext = [int(t) + lo + hi for t, (lo, hi) in zip(tile, suffix[j])]
+        depth = frontier_depth(tile, stage_halos, j, s, window_kind)
+        total += _align16(depth * prod(ext[i] for i in range(d) if i != s) * 4)
+    return total
+
+
 def sweep_smem_bytes(
     tile: Sequence[int],
     sweep_axis: int,
@@ -202,15 +225,7 @@ def sweep_smem_bytes(
     cross = prod(win[i] for i in range(d) if i != s)
     total = int(n_inputs) * _align16(rows * cross * int(dtype_bytes))
     if stage_halos is not None:
-        suffix = stage_suffix_halos(stage_halos)
-        for j in range(len(stage_halos) - 1):
-            ext = [
-                int(t) + lo + hi for t, (lo, hi) in zip(tile, suffix[j])
-            ]
-            depth = frontier_depth(tile, stage_halos, j, s, window_kind)
-            total += _align16(
-                depth * prod(ext[i] for i in range(d) if i != s) * 4
-            )
+        total += frontier_smem_bytes(tile, s, stage_halos, window_kind)
     if total > SMEM_BLOCK_LIMIT:
         raise ValueError(
             f"sweep launch needs {total} bytes of shared memory per block "

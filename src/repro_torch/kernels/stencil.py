@@ -10,14 +10,22 @@ condition, a stage dtype other than the input's or a quantized stage.
 
 The frontends keep the JAX package's names and signatures for what the
 port supports — ``tile=`` (or ``None``: the planner), ``sweep_axis=``,
-``plan=``, ``vmem_budget=``, ``pipelined``, ``time_steps``, ``stages``,
-``program``, ``window_kind`` and ``dtypes`` — with the whole boundary menu
-(dirichlet, neumann, reflect, robin, periodic; per stage), f32/bf16 stage
-storage and int8-quantized stages.  The tune, trace and sharding
-arguments raise ``NotImplementedError`` naming the ``ROADMAP.md`` item
-that brings them.  Every spelling lowers through the port's
-stencil-program IR, as the reference does, so the launches equal the
-reference's.
+``plan=``, ``vmem_budget=``, ``tune=``, ``trace=``, ``pipelined``,
+``time_steps``, ``stages``, ``program``, ``window_kind`` and ``dtypes`` —
+with the whole boundary menu (dirichlet, neumann, reflect, robin,
+periodic; per stage), f32/bf16 stage storage and int8-quantized stages.
+The sharding arguments raise ``NotImplementedError`` naming the
+``ROADMAP.md`` item that brings them.  Every spelling lowers through the
+port's stencil-program IR, as the reference does, so the launches equal
+the reference's.
+
+``tune=True`` (or an :class:`~repro_torch.plan.tune.AutoTuner`) plans an
+un-tiled call by measuring: a warm ``TunedPlanDB`` hit serves the
+measured winner, a miss races the planner's top candidates on the call's
+device first.  ``trace="path.json"`` records the call — plan, cache
+lookups, tune race and one ``kernel_launch`` span per launch with the
+launch's modelled bytes, flops and ms and its frontier shared memory —
+into a Chrome ``trace_event`` file (:mod:`repro_torch.obs`).
 
 Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
 :class:`~repro_torch.plan.PlanCache` keeps plans across processes)
@@ -39,10 +47,11 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from .. import ir, resolve_device
+from .. import ir, obs, resolve_device
 from ..core.tiling import (
     H100_SXM,
     chain_halo,
+    frontier_smem_bytes,
     halo_from_offsets,
     stage_suffix_halos,
 )
@@ -66,8 +75,6 @@ def _later(what: str, item: str) -> NotImplementedError:
     )
 
 
-_TUNE = "item 9 (measured tune loop)"
-_OBS = "item 10 (telemetry)"
 _SHARD = "item 11 (column sharding)"
 
 
@@ -289,17 +296,28 @@ def _as_tensors(us, device) -> tuple[torch.Tensor, ...]:
     return tuple(out)
 
 
+def _planning_hardware(dev):
+    """The card a plan for device ``dev`` is made for: the card's own
+    description, or the published H100 figures for the CPU."""
+    return hopper_device(dev) if dev.type == "cuda" else H100_SXM
+
+
 def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
                vmem_budget=None, time_steps=1, stages=None, bcs=None,
-               dtypes=None, window_kind="auto"):
+               dtypes=None, window_kind="auto", tune=None):
     """Plan for an un-tiled call — the reference's ``_auto_tile`` over the
     port's planner, for the card ``dev`` (the published H100 figures for a
     CPU tensor).  ``offsets_list`` and ``stages`` are per-RHS and per-stage
     offset tuples (weights stripped, so the plan is weight-independent);
-    a repeated call is answered from the planner's memo of calls."""
-    from ..plan import default_planner
+    a repeated call is answered from the planner's memo of calls.
 
-    hardware = hopper_device(dev) if dev.type == "cuda" else H100_SXM
+    ``tune`` (``True`` or an ``AutoTuner``) routes the decision through
+    the measured tune loop instead: a warm TunedPlanDB hit serves the
+    measured winner, a miss races the top-k candidates on ``dev`` first
+    (``repro_torch.plan.tune``)."""
+    from ..plan import default_planner, resolve_tuner
+
+    hardware = _planning_hardware(dev)
     signature = (shape, tuple(offsets_list), dtype_bytes, n_arrays,
                  hardware, vmem_budget, time_steps,
                  None if stages is None else tuple(stages), bcs, dtypes,
@@ -322,6 +340,15 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
     else:
         kw["offsets"] = [np.asarray(o).reshape(-1, d) for o in offsets_list]
         kw["time_steps"] = time_steps
+    tuner = resolve_tuner(tune, dev)
+    if tuner is not None:
+        tuned_on = torch.device(tuner.device or "cuda")
+        if tuned_on.type != dev.type:
+            raise ValueError(
+                f"tune= passes a tuner that measures on {tuner.device}, but "
+                f"the call runs on {dev}"
+            )
+        return tuner.plan(**kw)
     return default_planner().plan_call(signature, **kw)
 
 
@@ -448,11 +475,28 @@ def multi_stencil_pallas(
     dtype (``None`` = the input's); a program carries its boundaries,
     dtypes and quantizations on its ops.
     ``device=None`` runs on the card, ``device="cpu"`` runs the kernels'
-    plain versions."""
+    plain versions.
+
+    ``tune=`` (``True`` or an ``AutoTuner``) swaps the planner for the
+    measured tune loop; it excludes ``plan=`` and ``tile=``, which pin the
+    decision already.  ``trace="path.json"`` records this call into a
+    Chrome ``trace_event`` file (see :mod:`repro_torch.obs`)."""
     if trace is not None:
-        raise _later("trace=", _OBS)
-    if tune:
-        raise _later("tune=", _TUNE)
+        with obs.recording(trace):
+            return multi_stencil_pallas(
+                us, offsets_list, weights_list, tile=tile,
+                vmem_budget=vmem_budget, sweep_axis=sweep_axis,
+                pipelined=pipelined, plan=plan, time_steps=time_steps,
+                stages=stages, num_shards=num_shards,
+                shard_axis=shard_axis, mesh=mesh, tune=tune,
+                program=program, dtypes=dtypes, window_kind=window_kind,
+                device=device,
+            )
+    if tune and (plan is not None or tile is not None):
+        raise ValueError(
+            "tune= asks the measured tune loop for the launch decision, but "
+            "plan=/tile= pin it already — pass one or the other"
+        )
     if (num_shards is not None and int(num_shards) > 1) or mesh is not None \
             or shard_axis is not None:
         raise _later("num_shards=/mesh=/shard_axis=", _SHARD)
@@ -574,6 +618,7 @@ def multi_stencil_pallas(
         offsets_list = [o for o, _ in offsets_w]
     # -- the launch decision: explicit tile, precompiled plan, or planner --
     depth = None
+    resolved_plan = None
     if plan is not None:
         from ..plan import validate_plan_call
 
@@ -594,6 +639,7 @@ def multi_stencil_pallas(
             window_kind = plan.window_kind
         pipelined = pipelined and plan.pipelined
         depth = plan.fused_depth
+        resolved_plan = plan
     elif tile is None:
         choice = _auto_tile(
             shape, offsets_list, us[0].element_size(), len(us),
@@ -602,6 +648,7 @@ def multi_stencil_pallas(
             bcs=bcs if chain is not None else None,
             dtypes=req_dtypes if chain is not None else None,
             window_kind=window_kind or "auto",
+            tune=tune,
         )
         tile = choice.tile
         if sweep_axis is None:
@@ -609,6 +656,7 @@ def multi_stencil_pallas(
         if window_kind is None:
             window_kind = choice.window_kind
         depth = choice.fused_depth
+        resolved_plan = choice
     tile = tuple(int(t) for t in tile)
     sweep_axis = 0 if sweep_axis is None else int(sweep_axis)
     window_kind = window_kind or "ring"
@@ -616,8 +664,57 @@ def multi_stencil_pallas(
     if depth is None:
         depth = T  # explicit tile: the whole chain in one launch
 
+    def launch_span(n_run, run=None, run_dts=None, run_qs=None):
+        # Only called with recording on: prices this launch's slice of the
+        # plan's whole-chain model (n_run of T stages) and bumps the
+        # counters ``repro_torch.obs.report --check`` reconciles against
+        # the spans.
+        p = resolved_plan
+        if p is not None:
+            share = n_run / max(T, 1)
+            chain_bytes = (p.per_shard_traffic_bytes * p.num_shards
+                           + p.halo_exchange_bytes)
+            mb = round(chain_bytes * share)
+            mf = round(p.modeled_flops * share)
+            mms = p.modeled_ms * share
+            plan_key = p.request.cache_key()
+        else:
+            mb = mf = 0  # explicit tile: the caller owns the model
+            mms = 0.0
+            plan_key = "<explicit-tile>"
+        # The frontier part of this launch's shared memory under the
+        # resolved window kind (core/tiling.py::sweep_smem_bytes).
+        rsb = 0
+        if run is not None and len(run) > 1:
+            rsb = frontier_smem_bytes(
+                tile, sweep_axis, [halo_from_offsets([o], d) for o, _ in run],
+                window_kind,
+            )
+        quantized = run_qs is not None and any(q is not None for q in run_qs)
+        obs.add("launches")
+        obs.add("modeled_bytes", mb)
+        obs.add("modeled_flops", mf)
+        obs.add("ring_smem_bytes", rsb)
+        if quantized:
+            obs.add("quantized_launches")
+        return obs.span(
+            "kernel_launch",
+            plan_key=plan_key, tile=list(tile), sweep_axis=sweep_axis,
+            fused_depth=int(depth), steps=n_run, num_shards=1,
+            device=us[0].device.type, modeled_bytes=mb, modeled_flops=mf,
+            modeled_ms=mms, program=ir.summarize_program(prog),
+            window_kind=window_kind,
+            stage_dtypes=(list(run_dts) if run_dts is not None else None),
+            ring_smem_bytes=rsb,
+            stage_quants=(
+                [list(q) if q is not None else None for q in run_qs]
+                if quantized else None
+            ),
+        )
+
     if chain is None:
-        return _stencil_call(us, offsets_w, tile, sweep_axis, pipelined)
+        with launch_span(1) if obs.enabled() else obs.NULL_SPAN:
+            return _stencil_call(us, offsets_w, tile, sweep_axis, pipelined)
     # The run loop: launch i fuses stages [i·depth, (i+1)·depth); a launch
     # with a boundary, a stage dtype or a quantized stage takes the chain
     # form even for one stage, and a quantized hand-off reaches the next
@@ -632,22 +729,25 @@ def multi_stencil_pallas(
         run_qs = quants[pos: pos + len(run)]
         pos += len(run)
         has_bc = any(bc is not None for bc in run_bcs)
-        if has_bc or run_dts is not None:
-            result = _stencil_call(
-                arrays, (run[0],), tile, sweep_axis, pipelined,
-                stages_w=run, bcs_w=run_bcs if has_bc else None,
-                dtypes_w=run_dts, window_kind=window_kind,
-                quants_w=(run_qs if any(q is not None for q in run_qs)
-                          else None),
-                in_quant=in_q,
-            )
-        elif len(run) == 1:
-            result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
-                                   pipelined)
-        else:
-            result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
-                                   pipelined, stages_w=run,
-                                   window_kind=window_kind)
+        span = (launch_span(len(run), run, run_dts, run_qs)
+                if obs.enabled() else obs.NULL_SPAN)
+        with span:
+            if has_bc or run_dts is not None:
+                result = _stencil_call(
+                    arrays, (run[0],), tile, sweep_axis, pipelined,
+                    stages_w=run, bcs_w=run_bcs if has_bc else None,
+                    dtypes_w=run_dts, window_kind=window_kind,
+                    quants_w=(run_qs if any(q is not None for q in run_qs)
+                              else None),
+                    in_quant=in_q,
+                )
+            elif len(run) == 1:
+                result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
+                                       pipelined)
+            else:
+                result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
+                                       pipelined, stages_w=run,
+                                       window_kind=window_kind)
         if pos == len(chain):
             return result
         arrays = (result,)

@@ -17,7 +17,10 @@ request.
 A copy of the JAX package's ``plan/cache`` with a directory of its own:
 ``REPRO_TORCH_PLAN_CACHE_DIR``, else ``~/.cache/repro_torch/plans`` (never
 the reference's), so the two packages never read each other's plans.
-Its telemetry hooks are not ported yet (``ROADMAP.md`` queue A, item 10).
+With recording on (:mod:`repro_torch.obs`) a lookup is a
+``plan_cache_lookup`` span and bumps ``plan_cache_hit`` or
+``plan_cache_miss``; a degrade is a ``plan_cache_degrade`` event and
+counter.
 """
 
 from __future__ import annotations
@@ -28,6 +31,7 @@ import os
 import tempfile
 from collections import OrderedDict
 
+from .. import obs
 from .schema import PLANNER_VERSION, StencilPlan
 
 __all__ = ["PlanCache", "default_cache_dir"]
@@ -115,6 +119,10 @@ class PlanCache:
                 self.dir, type(exc).__name__, exc,
             )
             self._degraded = True
+            obs.add("plan_cache_degrade")
+            if obs.enabled():
+                obs.event("plan_cache_degrade", dir=self.dir,
+                          error=f"{type(exc).__name__}: {exc}")
             self.dir = None
 
     def _remember(self, key: str, plan: StencilPlan) -> None:
@@ -127,6 +135,18 @@ class PlanCache:
     # -- API ---------------------------------------------------------------
 
     def get(self, key: str) -> StencilPlan | None:
+        # The warm serving path stays sub-ms with recording off: one
+        # predicate check, then straight to the lookup.
+        if obs.enabled():
+            with obs.span("plan_cache_lookup", key=key) as sp:
+                plan = self._get(key)
+                sp.set(outcome="hit" if plan is not None else "miss")
+            obs.add("plan_cache_hit" if plan is not None
+                    else "plan_cache_miss")
+            return plan
+        return self._get(key)
+
+    def _get(self, key: str) -> StencilPlan | None:
         plan = self._mem.get(key)
         if plan is not None:
             self._mem.move_to_end(key)

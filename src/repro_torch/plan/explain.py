@@ -19,6 +19,11 @@ slower than the legacy heuristic or than its own single-pass plan, the
 ring admits every depth the trapezoid does and never models slower, every
 emitted tile fits its kernel's shared memory, the T = 3 star at 512³ does
 not fuse on an H100, and a warm cache hit takes under 1 ms.
+
+``--tuned`` also prints the measured candidate table the tune loop
+(``python -m repro_torch.plan.tune``) stored for the request, if any:
+``--device cuda`` for the card's records (planned for the card), else the
+CPU's.
 """
 
 from __future__ import annotations
@@ -303,6 +308,16 @@ def main(argv: list[str] | None = None) -> int:
                     "depth 1)")
     ap.add_argument("--validate", action="store_true",
                     help="cache-simulate original vs padded grid")
+    ap.add_argument("--tuned", action="store_true",
+                    help="show the TunedPlanDB record for this request "
+                    "(measured candidate table), if one exists")
+    ap.add_argument("--device", default=None,
+                    help="with --tuned: the device the record was measured "
+                    "on (cuda plans for this card; default: the CPU's "
+                    "record, planned with the published H100 figures)")
+    ap.add_argument("--db", default=None,
+                    help="tuned-plan DB directory for --tuned (default: "
+                    "REPRO_TORCH_TUNED_DB_DIR or ~/.cache/repro_torch/tuned)")
     ap.add_argument("--json", action="store_true",
                     help="machine-readable output: the full plan and the "
                     "depth-score table")
@@ -317,18 +332,41 @@ def main(argv: list[str] | None = None) -> int:
     geometry = None if args.geom.lower() == "none" else _parse_shape(args.geom)
     planner = Planner(strategy="legacy" if args.legacy else "paper",
                       cache=PlanCache(persistent=False))
+    hardware = None
+    if args.device is not None:
+        from .. import resolve_device
+        from ..kernels.stencil import _planning_hardware
+
+        hardware = _planning_hardware(resolve_device(args.device))
     plan = planner.plan(
         shape=shape, offsets=offs, dtype_bytes=args.dtype_bytes,
         vmem_budget=args.budget, geometry=geometry,
         aligned=not args.unaligned, time_steps=args.time_steps,
         window_kind=args.window_kind,
         dtypes=args.dtypes.split(",") if args.dtypes else None,
+        hardware=hardware,
     )
     if args.json:
         print(json.dumps(plan_json_doc(plan), indent=2, sort_keys=True))
         return 0
     validation = planner.validate(plan) if args.validate else None
     print(format_plan(plan, validation))
+    if args.tuned:
+        from .tune import backend_fingerprint, format_record
+        from .tunedb import TunedPlanDB
+
+        fp = backend_fingerprint(args.device or "cpu")
+        rec = TunedPlanDB(db_dir=args.db).get(plan.request.cache_key(), fp)
+        if rec is None:
+            dev = f" --device {args.device}" if args.device else " --device cpu"
+            print(
+                f"\ntuned: no record for this request at fingerprint {fp}\n"
+                "  (run `python -m repro_torch.plan.tune "
+                f"{args.shape} --stencil {args.stencil}{dev}` to measure one)"
+            )
+        else:
+            print("\ntuned record (measured candidates):")
+            print(format_record(rec))
     return 0
 
 

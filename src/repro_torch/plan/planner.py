@@ -38,10 +38,14 @@ other launch ``sweep_chain`` (1 CTA an SM).
 
 ``strategy="legacy"`` is the default candidate set at depth 1;
 ``strategy="paper"`` adds the lattice candidates and every depth, and
-asserts it never models slower than legacy.  Not ported yet: the tuned-
-plan database (``tuned_db=``, ``ROADMAP.md`` queue A item 9), the
-telemetry span (item 10) and the column-sharded slab (item 11: a request
-with ``num_shards > 1`` raises ``NotImplementedError``).
+asserts it never models slower than legacy.  A planner built with
+``tuned_db=`` (a :class:`~repro_torch.plan.tunedb.TunedPlanDB`) prefers
+a winner measured for the same request on the same device (``device=``,
+default the card) over its own choice; a miss plans analytically,
+unchanged.  With recording on (:mod:`repro_torch.obs`) every plan is a
+``plan`` span.  Not ported yet: the column-sharded slab (``ROADMAP.md``
+queue A item 11: a request with ``num_shards > 1`` raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,7 @@ from typing import Sequence
 
 import numpy as np
 
+from .. import obs
 from ..core.lattice import (
     CacheGeometry,
     basis_eccentricity,
@@ -150,11 +155,23 @@ class Planner:
     """Compiles :class:`PlanRequest` → :class:`StencilPlan`, memoized by a
     :class:`PlanCache` (content-addressed, persistent)."""
 
-    def __init__(self, strategy: str = "paper", cache: PlanCache | None = None):
+    def __init__(
+        self,
+        strategy: str = "paper",
+        cache: PlanCache | None = None,
+        tuned_db=None,
+        device=None,
+    ):
         assert strategy in ("paper", "legacy"), strategy
         self.strategy = strategy
         self.cache = cache if cache is not None else PlanCache()
+        # Optional TunedPlanDB: when attached, plan() prefers a measured
+        # winner recorded for this exact request on ``device`` (None: the
+        # card) and these kernels; a miss falls back to the analytic choice.
+        self.tuned_db = tuned_db
+        self.device = device
         self.last_plan_seconds: float | None = None  # cold-vs-warm telemetry
+        self.last_plan_tuned: bool = False           # did a tuned entry win?
         self._by_call: dict = {}
 
     # -- cheap diagnostics (no tile search) --------------------------------
@@ -278,10 +295,41 @@ class Planner:
         if request is None:
             kw.setdefault("strategy", self.strategy)
             request = PlanRequest.make(**kw)
+        key = request.cache_key()
+        # Hot serving path: one predicate check with recording off.
+        if obs.enabled():
+            with obs.span("plan", key=key) as sp:
+                plan = self._plan_resolve(request, key)
+                sp.set(
+                    tuned=self.last_plan_tuned,
+                    tile=list(plan.tile),
+                    sweep_axis=plan.sweep_axis,
+                    fused_depth=plan.fused_depth,
+                    num_shards=plan.num_shards,
+                    traffic_bytes=plan.traffic_bytes,
+                    modeled_ms=plan.modeled_ms,
+                )
+            return plan
+        return self._plan_resolve(request, key)
+
+    def _plan_resolve(self, request: PlanRequest, key: str) -> StencilPlan:
         t0 = time.perf_counter()
-        plan = self._analytic(request)
+        self.last_plan_tuned = False
+        if self.tuned_db is not None:
+            tuned = self._tuned_winner(key)
+            if tuned is not None:
+                self.last_plan_tuned = True
+                self.last_plan_seconds = time.perf_counter() - t0
+                return tuned
+        plan = self._analytic(request, key)
         self.last_plan_seconds = time.perf_counter() - t0
         return plan
+
+    def _tuned_winner(self, key: str) -> StencilPlan | None:
+        from .tune import backend_fingerprint
+
+        rec = self.tuned_db.get(key, backend_fingerprint(self.device))
+        return None if rec is None else rec.winner_plan
 
     def plan_call(self, signature, **kw) -> StencilPlan:
         """:meth:`plan` of the keyword request ``kw``, remembered under
@@ -290,7 +338,14 @@ class Planner:
         launch arguments), so that a repeated call neither builds the
         request nor hashes it: a warm lookup is one dict lookup, where
         building and keying a request costs a fraction of a millisecond
-        of host time before the first launch."""
+        of host time before the first launch.
+
+        The memo is bypassed while recording (every call is then a
+        ``plan`` span, as the JAX package's frontends make it) and on a
+        planner with a tuned DB, whose answer changes when a winner is
+        recorded: it then plans each call."""
+        if self.tuned_db is not None or obs.enabled():
+            return self.plan(**kw)
         plan = self._by_call.get(signature)
         if plan is None:
             plan = self.plan(**kw)
@@ -302,7 +357,8 @@ class Planner:
     def _analytic(
         self, request: PlanRequest, key: str | None = None
     ) -> StencilPlan:
-        """The model-driven plan, memoized by the cache."""
+        """The model-driven plan (PlanCache-memoized), never consulting the
+        tuned DB — the autotuner's baseline and candidate source."""
         if request.num_shards > 1:
             raise NotImplementedError(
                 "planning a column-sharded launch (num_shards > 1) is not in "

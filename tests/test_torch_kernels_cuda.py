@@ -930,3 +930,68 @@ def test_planned_launch_equals_the_plain_version(case, dev, monkeypatch):
     else:
         want = st.stencil_iterate(x, o13, w13, T, plan=plan, device="cpu")
     assert _same_bits(got.cpu(), want)
+
+
+# -- the measured tune loop ------------------------------------------------------
+
+
+def test_measure_on_the_card_synchronizes(dev):
+    """``measure`` on the card: each rep between CUDA events with the
+    device synchronized, so a launch that keeps the card busy for a while
+    reads positive times, and the work is done when it returns."""
+    from repro_torch.runtime.timing import measure
+
+    x = torch.randn((2048, 2048), device=dev)
+    out = []
+    res = measure(lambda: out.append(x @ x), reps=3, warmup=1, device=dev)
+    assert len(out) == 4 and res.reps == 3
+    assert all(t > 0 for t in res.times_s)
+    assert res.median_s > 0 and res.iqr_s >= 0
+    assert torch.cuda.current_stream(dev).query()
+
+
+@pytest.mark.parametrize("case", ["apply", "chain", "int8"])
+def test_tuned_call_equals_the_plain_version(case, dev, tmp_path,
+                                             monkeypatch):
+    """``tune=`` on the card races the candidates on the kernels, keeps a
+    record under a ``cuda:`` fingerprint, and the tuned call equals the
+    winner's launches on the CPU bit for bit; the warm call launches
+    nothing while it plans."""
+    from repro_torch.kernels import ref
+    from repro_torch.plan import AutoTuner, PlanCache, Planner, TunedPlanDB
+
+    monkeypatch.setenv("REPRO_TORCH_TUNED_DB_DIR", str(tmp_path))
+    tuner = AutoTuner(db=TunedPlanDB(),
+                      planner=Planner(cache=PlanCache(persistent=False)),
+                      k=3, reps=2, warmup=1)
+    shape = (40, 48, 64)
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal(shape).astype(np.float32)
+    o13, w13 = ref.star_weights_2nd_order(3, 2)
+    prog = ir.chain_program([(o13, w13)] * 3, 3, boundary="reflect",
+                            quants=[(0.02, 3), (0.02, 3), None])
+    calls = {
+        "apply": lambda **kw: st.stencil_pallas(x, o13, w13, **kw),
+        "chain": lambda **kw: st.stencil_iterate(x, o13, w13, 3, **kw),
+        "int8": lambda **kw: ir.run_program(prog, x * 0.3, **kw),
+    }
+    got = calls[case](tune=tuner)
+    rec = tuner.last_record
+    assert not tuner.last_plan_tuned and rec.fingerprint.startswith("cuda:")
+    assert rec.never_slower and len(rec.candidates) >= 2
+    want = calls[case](plan=rec.winner_plan, device="cpu")
+    assert _same_bits(got.cpu(), want)
+    plan_fn = tuner.plan
+    during = []
+
+    def watched(*a, **kw):
+        before = sweep.sweep_apply.launches + sweep.sweep_chain.launches
+        p = plan_fn(*a, **kw)
+        during.append(sweep.sweep_apply.launches + sweep.sweep_chain.launches
+                      - before)
+        return p
+
+    tuner.plan = watched
+    again = calls[case](tune=tuner)
+    assert tuner.last_plan_tuned and during == [0]
+    assert _same_bits(again.cpu(), want)

@@ -734,15 +734,49 @@ def test_plain_path_counts_no_launch():
 
 
 @pytest.mark.parametrize("call", [
-    dict(tune=True), dict(num_shards=2), dict(trace="t.json"),
-    dict(mesh=object()), dict(tile=None, num_shards=2),
-    dict(tile=None, shard_axis=1), dict(tile=None, tune=True),
+    pytest.param(dict(tune=True), id="call0"),
+    pytest.param(dict(num_shards=2), id="call1"),
+    pytest.param(dict(trace="t.json"), id="call2"),
+    pytest.param(dict(mesh=object()), id="call3"),
+    pytest.param(dict(tile=None, num_shards=2), id="call4"),
+    pytest.param(dict(tile=None, shard_axis=1), id="call5"),
+    pytest.param(dict(tile=None, tune=True), id="call6"),
 ])
-def test_arguments_outside_the_slice_name_their_roadmap_item(call):
+def test_arguments_outside_the_slice_name_their_roadmap_item(
+        call, tmp_path, monkeypatch):
+    """Sharding (``ROADMAP.md`` queue A item 11) raises naming its item.
+    ``tune=`` and ``trace=`` (items 9 and 10) are in the port: ``tune=``
+    beside a tile is the caller's contradiction (``ValueError``, as in
+    the JAX package), ``trace=`` writes a trace that reconciles, and
+    ``tune=`` without a tile tunes on the call's device."""
+    from repro_torch.obs.report import reconcile, summarize
+    from repro_torch.obs.trace_event import load_trace
+    from repro_torch.plan import PlanCache, Planner
+    from repro_torch.plan import planner as planner_mod
+    from repro_torch.plan import tune as tune_mod
+
+    monkeypatch.setattr(planner_mod, "_DEFAULT",
+                        Planner(cache=PlanCache(persistent=False)))
+    monkeypatch.setattr(tune_mod, "_DEFAULT", {})
+    monkeypatch.setenv("REPRO_TORCH_TUNED_DB_DIR", str(tmp_path / "tuned"))
     kw = dict(tile=(4, 8, 8), sweep_axis=0, device="cpu")
     kw.update(call)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        st.stencil_pallas(np.zeros((12, 13, 14), np.float32), O7, W7, **kw)
+    if "trace" in call:
+        kw["trace"] = str(tmp_path / call["trace"])
+    x = np.zeros((12, 13, 14), np.float32)
+    if "tune" in call and kw["tile"] is not None:
+        with pytest.raises(ValueError, match="tune="):
+            st.stencil_pallas(x, O7, W7, **kw)
+    elif "tune" in call or "trace" in call:
+        out = st.stencil_pallas(x, O7, W7, **kw)
+        assert torch.equal(out, torch.zeros_like(out))
+        if "trace" in call:
+            assert reconcile(summarize(load_trace(kw["trace"]))) == []
+        else:
+            assert tune_mod.resolve_tuner(True, "cpu").last_record
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            st.stencil_pallas(x, O7, W7, **kw)
 
 
 def test_boundary_and_quantized_programs_name_their_roadmap_item():

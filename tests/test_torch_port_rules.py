@@ -54,6 +54,10 @@ def test_the_scan_sees_the_port():
     assert "chip_smoke.py" in names
     assert "src/repro_torch/kernels/conv1d.py" in names
     assert "src/repro_torch/models/ssm.py" in names
+    for module in ("obs/__init__.py", "obs/recorder.py", "obs/report.py",
+                   "obs/trace_event.py", "runtime/__init__.py",
+                   "runtime/timing.py", "plan/tune.py", "plan/tunedb.py"):
+        assert f"src/repro_torch/{module}" in names, module
     assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 
 
