@@ -1519,6 +1519,327 @@ def main() -> None:
           "apply_traced_call_ms": traced_ms,
           "trace_cost_ms": traced_ms - untraced_ms, "card": card_line})
 
+    # -- sharded phases: column sharding over a 4-shard mesh on this card ----
+    # Each phase runs a call of an earlier phase on an explicit mesh of 4
+    # shards that share this card (a mesh never co-locates shards on its
+    # own), launching in order on the current stream.  Each holds the
+    # output bit-equal to the same call unsharded and to the same sharded
+    # launches on the plain versions; times the sharded and the unsharded
+    # call (CUDA events around one frontend call); splits the sharded
+    # call's device time into the slab launches (the sweep kernels) and
+    # the rest (fills, scatter, exchange, gather), and times each launch's
+    # halo exchange alone on the buffers it ran on; and reads the
+    # exchange counters of a traced call against the plan (or, at an
+    # explicit tile, against the launch geometry).
+    from repro_torch.launch.mesh import make_column_mesh
+    from repro_torch.parallel import shard_columns as sc
+    from repro_torch.plan import AutoTuner
+
+    one_card = torch.device("cuda", torch.cuda.current_device())
+    mesh4 = make_column_mesh(4, devices=[one_card] * 4)
+
+    def device_split(fn, reps=3) -> dict:
+        """Device ms of one call of ``fn`` (mean of ``reps``) from
+        ``torch.profiler``: the sweep kernels, and every other device
+        event (fills and copies)."""
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not evs:
+            miss = "not measured: no device events recorded"
+            return {"slab_device_ms": miss, "other_device_ms": miss}
+        kern = [e.time_range.elapsed_us() for e in evs if "sweep_" in e.name]
+        other = [e.time_range.elapsed_us() for e in evs
+                 if "sweep_" not in e.name]
+        return {"slab_device_ms": sum(kern) / 1e3 / reps,
+                "slab_launches_per_call": len(kern) / reps,
+                "other_device_ms": sum(other) / 1e3 / reps,
+                "other_events_per_call": len(other) / reps}
+
+    def exchanges(fn) -> dict:
+        """The halo exchanges of one call of ``fn``: each launch's
+        ``exchange_halos`` captured, then replayed alone on the buffers it
+        ran on under ``torch.profiler`` (mean of 5 replays); the bytes its
+        copies move; and the launches' geometry."""
+        seen = []
+        real = sc.exchange_halos
+
+        def spy(bufs, g):
+            seen.append((bufs, g))
+            return real(bufs, g)
+
+        sc.exchange_halos = spy
+        try:
+            fn()
+        finally:
+            sc.exchange_halos = real
+        torch.cuda.synchronize()
+        copied = 0
+        for bufs, g in seen:
+            a = g.axis
+            for rows, links in ((g.lo_w[a], g.fwd), (g.hi_w[a], g.bwd)):
+                for src, _ in links:
+                    for x in bufs[src]:
+                        copied += (x.numel() // x.shape[a] * rows
+                                   * x.element_size())
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                for bufs, g in seen:
+                    real(bufs, g)
+            torch.cuda.synchronize()
+        ts = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        out = {
+            "exchange_device_ms": (sum(ts) / 1e3 / 5 if ts else
+                                   "not measured: no device events"),
+            "exchange_copies_per_call": len(ts) / 5,
+            "exchange_copied_bytes": copied,
+            "geometry_exchange_bytes": sum(g.exchange_bytes for _, g in seen),
+            "geometry": [{"shard_axis": g.axis, "rows_per_shard": g.rows,
+                          "last": g.last, "n_last": g.n_last,
+                          "fwd": [list(p) for p in g.fwd],
+                          "bwd": [list(p) for p in g.bwd],
+                          "rows_lo": g.lo_w[g.axis],
+                          "rows_hi": g.hi_w[g.axis]} for _, g in seen],
+        }
+        del seen
+        return out
+
+    def sharded_phase(name, sharded, unsharded, n_launch, plan=None,
+                      hand=None, extra=None):
+        """``sharded()`` is the call on ``mesh4``, ``unsharded()`` the same
+        call on one device (at the sharded plan, if any); ``n_launch`` the
+        launches of one call."""
+        reset()
+        t0 = time.perf_counter()
+        out = sharded()
+        torch.cuda.synchronize()
+        first_call_s = time.perf_counter() - t0
+        launched = counts()
+        assert sum(launched.values()) == 4 * n_launch, (name, launched)
+        assert bool(torch.isfinite(out.float()).all()), name
+        base = unsharded()
+        torch.cuda.synchronize()
+        equal = bits_equal(out, base)
+        plain = plain_versions(sharded)
+        exact = bits_equal(out, plain)
+        err = max(max_err(out, base), max_err(out, plain))
+        del plain, base
+        torch.cuda.empty_cache()
+        with obs.recording() as rec_obs:
+            sharded()
+        torch.cuda.synchronize()
+        c_ = rec_obs.counters
+        n_x = sum(1 for sp in rec_obs.spans if sp.name == "halo_exchange")
+        xch = exchanges(sharded)
+        want_x = (plan.halo_exchange_bytes if plan is not None
+                  else xch["geometry_exchange_bytes"])
+        counters_ok = (c_.get("halo_exchange_bytes") == want_x
+                       and n_x == c_.get("launches") == n_launch)
+        call_ms = time_ms(sharded, reps=5)
+        base_ms = time_ms(unsharded, reps=5)
+        split = device_split(sharded)
+        base_split = device_split(unsharded)
+        ok = equal and exact and counters_ok
+        gates.append((name, ok))
+        phase = {
+            "phase": name, "shape": list(out.shape), "mesh": {
+                "shards": mesh4.size,
+                "devices": [str(d_) for d_ in mesh4.devices]},
+            "launches": launched, "launches_per_call": n_launch,
+            "equals_unsharded": equal, "exact_vs_plain": exact,
+            "max_abs_err": err,
+            "ms": call_ms, "call_ms": call_ms, "unsharded_call_ms": base_ms,
+            "sharded_over_unsharded": call_ms / base_ms,
+            **split,
+            "unsharded_slab_device_ms": base_split["slab_device_ms"],
+            "unsharded_other_device_ms": base_split["other_device_ms"],
+            **xch,
+            "counters": {k: c_.get(k) for k in (
+                "launches", "halo_exchange_bytes", "halo_exchange_rounds",
+                "modeled_bytes")},
+            "halo_exchange_spans": n_x, "counters_equal_plan": counters_ok,
+            "plan": None if plan is None else {
+                "tile": list(plan.tile), "sweep_axis": plan.sweep_axis,
+                "shard_axis": plan.shard_axis,
+                "fused_depth": plan.fused_depth, "kernel": plan.kernel,
+                "modeled_ms": plan.modeled_ms,
+                "per_shard_traffic_bytes": plan.per_shard_traffic_bytes,
+                "halo_exchange_bytes": plan.halo_exchange_bytes,
+                "waves": plan.waves, "ctas_per_sm": plan.ctas_per_sm},
+            "first_call_s": first_call_s, "gates_ok": ok,
+            "plain_ms": None, "library_ms": None, "card": card_line,
+        }
+        if hand is not None:
+            h = by_name(hand)
+            phase.update(compare_with=hand,
+                         hand_call_ms=h.get("call_ms"),
+                         hand_device_ms=h.get("device_ms"))
+        phase.update(extra or {})
+        del out
+        torch.cuda.empty_cache()
+        return phase
+
+    # sharded_apply_f32_512: apply_f32_512's call; the shard axis is
+    # pick_shard_axis's (axis 1: 32 columns against 16 on axis 2).
+    gen.manual_seed(0)
+    u = torch.randn(big, generator=gen, device=dev)
+    a_call = lambda **kw: st.stencil_pallas(  # noqa: E731
+        u, offs13, w13, tile=(8, 16, 32), sweep_axis=0, **kw)
+    phase = sharded_phase(
+        "sharded_apply_f32_512", lambda: a_call(mesh=mesh4), a_call, 1,
+        hand="apply_f32_512",
+        extra={"shard_axis": sc.pick_shard_axis(big, (8, 16, 32), 0)})
+    phase.update(**bound(big, 4, 4, 1, [len(w13)]))
+    emit(phase)
+    summary["sweep_apply"].append(phase)
+
+    # sharded_chain_T3_512: chain_T3_512's fused ring call.
+    gen.manual_seed(2)
+    u = torch.randn(big, generator=gen, device=dev)
+    c_call = lambda **kw: st.stencil_iterate(  # noqa: E731
+        u, offs13, w13, 3, tile=(4, 16, 32), sweep_axis=0,
+        window_kind="ring", **kw)
+    phase = sharded_phase(
+        "sharded_chain_T3_512", lambda: c_call(mesh=mesh4), c_call, 1,
+        hand="chain_T3_512")
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3))
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del u
+    torch.cuda.empty_cache()
+
+    # sharded_periodic_ragged: a periodic T=3 chain on 250×253×258 sharded
+    # along axis 1 (16 columns of 16 rows, 4 a shard: 64 rows, the last
+    # shard owning 61), where the wrap links close the ring.
+    rag = (250, 253, 258)
+    gen.manual_seed(9)
+    u = torch.randn(rag, generator=gen, device=dev)
+    p_prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="periodic")
+    p_call = lambda **kw: ir.run_program(  # noqa: E731
+        p_prog, u, tile=(4, 16, 32), sweep_axis=0, **kw)
+    phase = sharded_phase(
+        "sharded_periodic_ragged", lambda: p_call(mesh=mesh4), p_call, 1)
+    geo = phase["geometry"][0]
+    assert (geo["shard_axis"], geo["rows_per_shard"], geo["n_last"]) == \
+        (1, 64, 61), geo
+    assert [3, 0] in geo["fwd"] and [0, 3] in geo["bwd"], geo
+    phase.update(**bound(rag, 4, 4, 1, [len(w13)] * 3))
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del u
+    torch.cuda.empty_cache()
+
+    # planned_sharded_chain_int8_512: chain_int8_512's program without a
+    # tile over the mesh: the planner plans the worst shard's slab, and a
+    # plan that splits the chain hands int8 codes (zero point 3) from
+    # launch to launch, whose mesh-edge halos hold the zero point.
+    gen.manual_seed(4)
+    u8 = torch.randn(big, generator=gen, device=dev) * 0.01
+    i_prog = ir.chain_program([(offs13, w13)] * 3, 3, boundary="reflect",
+                              quants=[q, q, None])
+    seen_plans.clear()
+    ir.run_program(i_prog, u8, mesh=mesh4)
+    s_plan = seen_plans[-1]
+    assert s_plan.num_shards == 4, s_plan
+    phase = sharded_phase(
+        "planned_sharded_chain_int8_512",
+        lambda: ir.run_program(i_prog, u8, mesh=mesh4),
+        lambda: ir.run_program(i_prog, u8, plan=s_plan, num_shards=1),
+        -(-3 // s_plan.fused_depth), plan=s_plan,
+        hand="planned_chain_int8_512",
+        extra={"hands_int8_codes": s_plan.fused_depth < 3,
+               "zero_point": q[1]})
+    phase.update(**bound(big, 4, 4, 1, [len(w13)] * 3))
+    emit(phase)
+    summary["sweep_chain"].append(phase)
+    del u8
+    torch.cuda.empty_cache()
+
+    # tuned_traced_sharded_256: a 256³ T=3 star with tune= (k=2) and
+    # trace= over the mesh: the race measures sharded launches on this
+    # call's mesh; the warm call serves the record with one tunedb_hit and
+    # no measure span, and its trace holds one halo_exchange span a launch
+    # and passes report --check.
+    small = (256, 256, 256)
+    gen.manual_seed(6)
+    u = torch.randn(small, generator=gen, device=dev)
+    s_tuner = AutoTuner(k=2, reps=5, warmup=1, device="cuda")
+    t_call = lambda **kw: st.stencil_iterate(  # noqa: E731
+        u, offs13, w13, 3, **kw)
+
+    def traced_check(path) -> dict:
+        summ = summarize(obs.load_trace(path))
+        cli = subprocess.run(
+            [sys.executable, "-m", "repro_torch.obs.report", path,
+             "--check"],
+            env={**os.environ, "PYTHONPATH": str(SRC)},
+            capture_output=True, text=True, timeout=300)
+        return {"reconcile_problems": reconcile(summ),
+                "report_check_rc": cli.returncode,
+                "kernel_launch_spans": len(summ["launches"]),
+                "halo_exchange_spans": summ["n_exchange_spans"],
+                "measure_spans": summ["n_measure_spans"],
+                "span_shards": sorted({ln["num_shards"]
+                                       for ln in summ["launches"]}),
+                "counters": summ["counters"]}
+
+    t0 = time.perf_counter()
+    t_call(mesh=mesh4, tune=s_tuner, trace=str(trace_dir / "race.json"))
+    torch.cuda.synchronize()
+    race_s = time.perf_counter() - t0
+    measured_first = not s_tuner.last_plan_tuned
+    rec_s = s_tuner.last_record
+    winner = rec_s.winner_plan
+    race_trace = traced_check(str(trace_dir / "race.json"))
+    reset()
+    t_call(mesh=mesh4, tune=s_tuner, trace=str(trace_dir / "warm.json"))
+    torch.cuda.synchronize()
+    warm_launched = counts()
+    warm_trace = traced_check(str(trace_dir / "warm.json"))
+    n_w = -(-3 // winner.fused_depth)
+    warm_ok = (s_tuner.last_plan_tuned
+               and warm_trace["counters"].get("tunedb_hit") == 1
+               and warm_trace["measure_spans"] == 0
+               and warm_trace["report_check_rc"] == 0
+               and race_trace["report_check_rc"] == 0
+               and not warm_trace["reconcile_problems"]
+               and warm_trace["halo_exchange_spans"]
+               == warm_trace["kernel_launch_spans"] == n_w
+               and warm_trace["span_shards"] == [4]
+               and sum(warm_launched.values()) == 4 * n_w)
+    gates.append(("tuned_traced_sharded_256 warm", warm_ok))
+    phase = sharded_phase(
+        "tuned_traced_sharded_256",
+        lambda: t_call(mesh=mesh4, tune=s_tuner),
+        lambda: t_call(plan=winner, num_shards=1), n_w, plan=winner,
+        extra={
+            "race_s": race_s, "first_call_measured": measured_first,
+            "never_slower": rec_s.never_slower,
+            "winner_rank": rec_s.winner,
+            "speedup_vs_analytic": rec_s.speedup_vs_analytic,
+            "candidates": [{
+                "tile": list(c_.tile), "sweep_axis": c_.sweep_axis,
+                "shard_axis": c_.shard_axis, "fused_depth": c_.fused_depth,
+                "advisory": c_.advisory, "modeled_ms": c_.modeled_ms,
+                "modeled_bytes": c_.modeled_bytes,
+                "median_ms": c_.median_s * 1e3} for c_ in rec_s.candidates],
+            "warm_launches": warm_launched, "warm_ok": warm_ok,
+            "race_trace": race_trace, "warm_trace": warm_trace,
+        })
+    assert measured_first and rec_s.never_slower, phase
+    phase.update(**bound(small, 4, 4, 1, [len(w13)] * 3))
+    emit(phase)
+    summary["sweep_chain" if winner.fused_depth > 1
+            else "sweep_apply"].append(phase)
+    del u
+    torch.cuda.empty_cache()
+
     # unfavorable_sweep: the paper's question on this card.  The planned
     # 13-point star on n × n × 256 f32 grids, n = 500..516, timed (the
     # kernel alone, CUDA events) at the planned tile and at the fixed

@@ -702,12 +702,16 @@ def select_tile(
     n_inputs: int = 1,
     out_bytes: int | None = None,
     device: HopperDevice = H100_SXM,
+    exclude_sweep_axis: int | None = None,
 ) -> TileChoice:
     """The tile of least modelled time for one launch of ``kernel``.
 
     ``sweep_axis="auto"`` tries every axis of extent > 1 (an int forces
     one); the reference's per-tile-halo option (``None``) is not
-    enumerated: the port's launch realises it as axis 0.  A tile is
+    enumerated: the port's launch realises it as axis 0.
+    ``exclude_sweep_axis`` (a column-sharded launch's shard axis) drops one
+    axis from the ``"auto"`` enumeration: a shard sweeps within its own
+    column slab, never along the partitioned axis.  A tile is
     feasible when :func:`launch_smem` fits ``min(vmem_budget,
     device.smem_per_block)`` and at least one CTA fits an SM.  Ties go to
     less traffic, then fewer sweep steps, then the lower axis, then less
@@ -733,7 +737,8 @@ def select_tile(
         if len(e) == len(shape) and all(1 <= int(t) for t in e)
     ]
     if sweep_axis == "auto":
-        axes = [i for i, n in enumerate(shape) if n > 1] or [0]
+        free = [i for i in range(len(shape)) if i != exclude_sweep_axis]
+        axes = [i for i in free if shape[i] > 1] or free[:1]
     else:
         axes = [int(sweep_axis)]
     window = chain_halo(stage_halos) if kernel == "chain" else halo

@@ -13,11 +13,11 @@ port supports — ``tile=`` (or ``None``: the planner), ``sweep_axis=``,
 ``plan=``, ``vmem_budget=``, ``tune=``, ``trace=``, ``pipelined``,
 ``time_steps``, ``stages``, ``program``, ``window_kind`` and ``dtypes`` —
 with the whole boundary menu (dirichlet, neumann, reflect, robin,
-periodic; per stage), f32/bf16 stage storage and int8-quantized stages.
-The sharding arguments raise ``NotImplementedError`` naming the
-``ROADMAP.md`` item that brings them.  Every spelling lowers through the
-port's stencil-program IR, as the reference does, so the launches equal
-the reference's.
+periodic; per stage), f32/bf16 stage storage, int8-quantized stages and
+column sharding (``num_shards=``, ``mesh=``, ``shard_axis=``:
+:mod:`repro_torch.parallel.shard_columns`, bit-equal to the unsharded
+launch).  Every spelling lowers through the port's stencil-program IR, as
+the reference does, so the launches equal the reference's.
 
 ``tune=True`` (or an :class:`~repro_torch.plan.tune.AutoTuner`) plans an
 un-tiled call by measuring: a warm ``TunedPlanDB`` hit serves the
@@ -55,6 +55,7 @@ from ..core.tiling import (
     halo_from_offsets,
     stage_suffix_halos,
 )
+from ..launch.mesh import ColumnMesh
 from .sweep import hopper_device, sweep_apply, sweep_chain
 
 __all__ = [
@@ -67,15 +68,6 @@ __all__ = [
 
 def _round_up(n: int, t: int) -> int:
     return -(-n // t) * t
-
-
-def _later(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not in the port yet: ROADMAP.md queue A, {item}"
-    )
-
-
-_SHARD = "item 11 (column sharding)"
 
 
 class _Stage(NamedTuple):
@@ -304,7 +296,8 @@ def _planning_hardware(dev):
 
 def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
                vmem_budget=None, time_steps=1, stages=None, bcs=None,
-               dtypes=None, window_kind="auto", tune=None):
+               dtypes=None, window_kind="auto", tune=None, num_shards=1,
+               mesh=None):
     """Plan for an un-tiled call — the reference's ``_auto_tile`` over the
     port's planner, for the card ``dev`` (the published H100 figures for a
     CPU tensor).  ``offsets_list`` and ``stages`` are per-RHS and per-stage
@@ -314,14 +307,15 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
     ``tune`` (``True`` or an ``AutoTuner``) routes the decision through
     the measured tune loop instead: a warm TunedPlanDB hit serves the
     measured winner, a miss races the top-k candidates on ``dev`` first
-    (``repro_torch.plan.tune``)."""
+    (``repro_torch.plan.tune``), a sharded request on the call's ``mesh``.
+    ``num_shards > 1`` plans the worst shard's column slab."""
     from ..plan import default_planner, resolve_tuner
 
     hardware = _planning_hardware(dev)
     signature = (shape, tuple(offsets_list), dtype_bytes, n_arrays,
                  hardware, vmem_budget, time_steps,
                  None if stages is None else tuple(stages), bcs, dtypes,
-                 window_kind)
+                 window_kind, num_shards)
     d = len(shape)
     kw = dict(
         shape=shape,
@@ -330,7 +324,10 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
         n_operands=n_arrays + 1,
         window_kind=window_kind,
         hardware=hardware,
+        num_shards=num_shards,
     )
+    if mesh is not None:
+        kw["mesh_axis"] = mesh.axis_name
     if stages is not None:
         kw["stages"] = [np.asarray(o).reshape(-1, d) for o in stages]
         if bcs is not None and any(bc is not None for bc in bcs):
@@ -348,7 +345,7 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
                 f"tune= passes a tuner that measures on {tuner.device}, but "
                 f"the call runs on {dev}"
             )
-        return tuner.plan(**kw)
+        return tuner.plan(mesh=mesh, **kw)
     return default_planner().plan_call(signature, **kw)
 
 
@@ -480,7 +477,16 @@ def multi_stencil_pallas(
     ``tune=`` (``True`` or an ``AutoTuner``) swaps the planner for the
     measured tune loop; it excludes ``plan=`` and ``tile=``, which pin the
     decision already.  ``trace="path.json"`` records this call into a
-    Chrome ``trace_event`` file (see :mod:`repro_torch.obs`)."""
+    Chrome ``trace_event`` file (see :mod:`repro_torch.obs`).
+
+    ``num_shards=S`` (or ``mesh=``, a
+    :class:`~repro_torch.launch.mesh.ColumnMesh`, or a plan with
+    ``num_shards > 1``) runs every launch column-sharded over S devices
+    along ``shard_axis`` (the planner's or
+    :func:`~repro_torch.parallel.shard_columns.pick_shard_axis`'s choice
+    by default), bit-equal to the unsharded call.  Without a mesh the
+    shards take the first S cards, or the CPU for a CPU call; shards share
+    a card only through a mesh that names it for each."""
     if trace is not None:
         with obs.recording(trace):
             return multi_stencil_pallas(
@@ -497,9 +503,6 @@ def multi_stencil_pallas(
             "tune= asks the measured tune loop for the launch decision, but "
             "plan=/tile= pin it already — pass one or the other"
         )
-    if (num_shards is not None and int(num_shards) > 1) or mesh is not None \
-            or shard_axis is not None:
-        raise _later("num_shards=/mesh=/shard_axis=", _SHARD)
     if window_kind is not None and window_kind not in ("ring", "trapezoid"):
         raise ValueError(
             f"window_kind must be 'ring' or 'trapezoid', got {window_kind!r}"
@@ -617,6 +620,18 @@ def multi_stencil_pallas(
         req_dtypes = None
         offsets_list = [o for o, _ in offsets_w]
     # -- the launch decision: explicit tile, precompiled plan, or planner --
+    explicit_sweep = sweep_axis is not None
+    explicit_shard = shard_axis is not None
+    if mesh is not None and not isinstance(mesh, ColumnMesh):
+        raise TypeError(
+            "mesh= takes a ColumnMesh (repro_torch.launch.mesh."
+            f"make_column_mesh), got {type(mesh).__name__}"
+        )
+    if num_shards is None:
+        if mesh is not None:
+            num_shards = mesh.size
+        elif plan is not None:
+            num_shards = plan.num_shards
     depth = None
     resolved_plan = None
     if plan is not None:
@@ -635,6 +650,8 @@ def multi_stencil_pallas(
             tile = plan.tile
         if sweep_axis is None:
             sweep_axis = plan.sweep_axis
+        if shard_axis is None:
+            shard_axis = plan.shard_axis
         if window_kind is None:
             window_kind = plan.window_kind
         pipelined = pipelined and plan.pipelined
@@ -649,10 +666,14 @@ def multi_stencil_pallas(
             dtypes=req_dtypes if chain is not None else None,
             window_kind=window_kind or "auto",
             tune=tune,
+            num_shards=int(num_shards or 1),
+            mesh=mesh,
         )
         tile = choice.tile
         if sweep_axis is None:
             sweep_axis = choice.sweep_axis
+        if shard_axis is None:
+            shard_axis = choice.shard_axis
         if window_kind is None:
             window_kind = choice.window_kind
         depth = choice.fused_depth
@@ -663,6 +684,30 @@ def multi_stencil_pallas(
     pipelined = bool(pipelined)
     if depth is None:
         depth = T  # explicit tile: the whole chain in one launch
+    num_shards = 1 if num_shards is None else int(num_shards)
+    sharded = num_shards > 1 or mesh is not None
+    if (sharded and shard_axis is not None
+            and int(shard_axis) == sweep_axis
+            and explicit_shard != explicit_sweep):
+        # Exactly one of the two axes was pinned by the caller and the
+        # planner's choice of the other collided with it: the pin wins and
+        # the free axis is derived again.
+        from ..parallel.shard_columns import pick_shard_axis
+
+        if explicit_shard:
+            ncols = {i: -(-shape[i] // tile[i]) for i in range(d)
+                     if i != int(shard_axis)}
+            if ncols:  # a 1-d grid: the launcher raises its error
+                sweep_axis = max(ncols, key=lambda i: (ncols[i], -i))
+        else:
+            shard_axis = pick_shard_axis(shape, tile, sweep_axis)
+    if sharded:
+        from ..parallel.shard_columns import column_launcher
+
+        launcher = column_launcher(num_shards=num_shards,
+                                   shard_axis=shard_axis, mesh=mesh)
+    else:
+        launcher = _stencil_call
 
     def launch_span(n_run, run=None, run_dts=None, run_qs=None):
         # Only called with recording on: prices this launch's slice of the
@@ -700,7 +745,7 @@ def multi_stencil_pallas(
         return obs.span(
             "kernel_launch",
             plan_key=plan_key, tile=list(tile), sweep_axis=sweep_axis,
-            fused_depth=int(depth), steps=n_run, num_shards=1,
+            fused_depth=int(depth), steps=n_run, num_shards=num_shards,
             device=us[0].device.type, modeled_bytes=mb, modeled_flops=mf,
             modeled_ms=mms, program=ir.summarize_program(prog),
             window_kind=window_kind,
@@ -714,7 +759,7 @@ def multi_stencil_pallas(
 
     if chain is None:
         with launch_span(1) if obs.enabled() else obs.NULL_SPAN:
-            return _stencil_call(us, offsets_w, tile, sweep_axis, pipelined)
+            return launcher(us, offsets_w, tile, sweep_axis, pipelined)
     # The run loop: launch i fuses stages [i·depth, (i+1)·depth); a launch
     # with a boundary, a stage dtype or a quantized stage takes the chain
     # form even for one stage, and a quantized hand-off reaches the next
@@ -733,7 +778,7 @@ def multi_stencil_pallas(
                 if obs.enabled() else obs.NULL_SPAN)
         with span:
             if has_bc or run_dts is not None:
-                result = _stencil_call(
+                result = launcher(
                     arrays, (run[0],), tile, sweep_axis, pipelined,
                     stages_w=run, bcs_w=run_bcs if has_bc else None,
                     dtypes_w=run_dts, window_kind=window_kind,
@@ -742,12 +787,12 @@ def multi_stencil_pallas(
                     in_quant=in_q,
                 )
             elif len(run) == 1:
-                result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
-                                       pipelined)
+                result = launcher(arrays, (run[0],), tile, sweep_axis,
+                                  pipelined)
             else:
-                result = _stencil_call(arrays, (run[0],), tile, sweep_axis,
-                                       pipelined, stages_w=run,
-                                       window_kind=window_kind)
+                result = launcher(arrays, (run[0],), tile, sweep_axis,
+                                  pipelined, stages_w=run,
+                                  window_kind=window_kind)
         if pos == len(chain):
             return result
         arrays = (result,)

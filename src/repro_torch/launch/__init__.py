@@ -1,1 +1,1 @@
-"""Launch drivers of the port: so far the serving loop."""
+"""Launch entry points of the port: the serving loop and the column mesh."""

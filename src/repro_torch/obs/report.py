@@ -3,9 +3,9 @@
 Reads a ``trace_event`` JSON file written by :mod:`repro_torch.obs` and
 prints the evidence trail the plan promises:
 
-* a per-launch table — plan key, fused depth, tile, window kind, frontier
-  shared memory, modelled bytes and modelled ms, and the span's host
-  time — one row per ``kernel_launch`` span;
+* a per-launch table — plan key, fused depth, shard count, tile, window
+  kind, frontier shared memory, modelled bytes and modelled ms, and the
+  span's host time — one row per ``kernel_launch`` span;
 * the tune-race outcome (candidate ranks, measured medians, winner);
 * the counter totals (cache hits/misses, modelled totals).
 
@@ -19,7 +19,8 @@ tune loop's ``measure``, which synchronizes.
 ``--check`` additionally asserts the internal bookkeeping reconciles —
 the ``launches`` counter matches the number of launch spans, the summed
 per-span ``modeled_bytes``, ``modeled_flops`` and ``ring_smem_bytes`` (the
-frontier part of each launch's shared memory) match their counters, and
+frontier part of each launch's shared memory) match their counters, the
+summed ``halo_exchange`` span bytes match ``halo_exchange_bytes``, and
 the summed ``measure`` span nanoseconds match ``measured_ns`` — exiting
 non-zero on any mismatch.
 """
@@ -67,6 +68,7 @@ def summarize(doc: dict) -> dict[str, Any]:
             "plan_key": str(args.get("plan_key", "?")),
             "device": args.get("device"),
             "fused_depth": args.get("fused_depth"),
+            "num_shards": args.get("num_shards"),
             "tile": args.get("tile"),
             "sweep_axis": args.get("sweep_axis"),
             "steps": args.get("steps"),
@@ -100,6 +102,7 @@ def summarize(doc: dict) -> dict[str, Any]:
             "dur_us": float(ev.get("dur", 0.0)),
         })
     measures = _spans(doc, "measure")
+    exchanges = _spans(doc, "halo_exchange")
     return {
         "counters": counters,
         "launches": launches,
@@ -107,6 +110,11 @@ def summarize(doc: dict) -> dict[str, Any]:
         "candidates": candidates,
         "n_plan_spans": len(_spans(doc, "plan")),
         "n_measure_spans": len(measures),
+        "n_exchange_spans": len(exchanges),
+        "exchange_bytes_total": int(
+            sum((x.get("args") or {}).get("exchange_bytes", 0)
+                for x in exchanges)
+        ),
         "measure_ns_total": int(
             sum((m.get("args") or {}).get("measured_ns", 0) for m in measures)
         ),
@@ -131,6 +139,12 @@ def reconcile(summary: dict[str, Any]) -> list[str]:
                 f"{field} counter={c.get(field, 0)} but launch spans sum "
                 f"to {span_sum}"
             )
+    if summary["exchange_bytes_total"] != int(c.get("halo_exchange_bytes", 0)):
+        problems.append(
+            f"halo_exchange_bytes counter={c.get('halo_exchange_bytes', 0)} "
+            f"but halo_exchange spans sum to "
+            f"{summary['exchange_bytes_total']}"
+        )
     if summary["measure_ns_total"] != int(c.get("measured_ns", 0)):
         problems.append(
             f"measured_ns counter={c.get('measured_ns', 0)} but measure "
@@ -152,7 +166,7 @@ def render(summary: dict[str, Any]) -> str:
     lines.append(f"launches: {len(launches)}")
     if launches:
         hdr = (
-            f"{'#':>3}  {'plan key':<14} {'dev':<4} {'T':>3} "
+            f"{'#':>3}  {'plan key':<14} {'dev':<4} {'T':>3} {'shards':>6} "
             f"{'tile':<14} {'win':<5} {'ring smem':>10} "
             f"{'modeled':>12} {'model ms':>9} {'host ms':>9}"
         )
@@ -163,7 +177,7 @@ def render(summary: dict[str, Any]) -> str:
             lines.append(
                 f"{i:>3}  {l['plan_key'][:14]:<14} "
                 f"{str(l['device'] or '-')[:4]:<4} "
-                f"{l['fused_depth'] or 1:>3} "
+                f"{l['fused_depth'] or 1:>3} {l['num_shards'] or 1:>6} "
                 f"{tile:<14} {wk:<5} "
                 f"{_fmt_bytes(l['ring_smem_bytes']):>10} "
                 f"{_fmt_bytes(l['modeled_bytes']):>12} "
@@ -197,7 +211,8 @@ def render(summary: dict[str, Any]) -> str:
         )
     lines.append(
         f"spans: plan={summary['n_plan_spans']} "
-        f"measure={summary['n_measure_spans']}"
+        f"measure={summary['n_measure_spans']} "
+        f"halo_exchange={summary['n_exchange_spans']}"
     )
     counters = summary["counters"]
     if counters:

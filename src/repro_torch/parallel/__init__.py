@@ -1,1 +1,2 @@
-"""Parallelism of the port: so far only the parameter-spec dataclass."""
+"""Parallelism of the port: the column-sharded stencil launch
+(``shard_columns``) and the parameter-spec dataclass (``sharding``)."""

@@ -1,8 +1,8 @@
 """Parameter specs: a copy of ``ParamSpec`` from the JAX package's
 ``parallel/sharding``.
 
-The logical axes ride along as data for the sharding slice
-(``ROADMAP.md`` queue A, item 11); nothing in the port reads them yet.
+The logical axes ride along as data for the sharded model stack
+(``ROADMAP.md`` queue A, item 12); nothing in the port reads them yet.
 """
 
 from __future__ import annotations

@@ -9,16 +9,21 @@ modelled time and traffic against the legacy heuristic, the planner's own
 single-pass choice and the isoperimetric lower bound, on the card the
 request names (the published H100 SXM figures by default).
 
-``--smoke`` runs the gates: seven requests (one favorable and one
+``--num-shards N`` plans the column-sharded launch (per-shard figures
+and the halo-exchange bytes).
+
+``--smoke`` runs the gates: eight requests (one favorable and one
 unfavorable grid under the paper's (2, 512, 4) cache, the 13-point star
 at 512³, the same star three times at 512³, a two-stage heterogeneous
-chain, a bf16 ring chain against its forced trapezoid, and Mamba2's
-prefill conv grid), asserting that the pad triggers exactly on the
-unfavorable grid and clears it, efficiency ≤ 1, the planner never models
-slower than the legacy heuristic or than its own single-pass plan, the
-ring admits every depth the trapezoid does and never models slower, every
-emitted tile fits its kernel's shared memory, the T = 3 star at 512³ does
-not fuse on an H100, and a warm cache hit takes under 1 ms.
+chain, a bf16 ring chain against its forced trapezoid, the star at 256³
+over 4 shards, and Mamba2's prefill conv grid), asserting that the pad
+triggers exactly on the unfavorable grid and clears it, efficiency ≤ 1,
+the planner never models slower than the legacy heuristic or than its own
+single-pass plan, the ring admits every depth the trapezoid does and
+never models slower, every emitted tile fits its kernel's shared memory,
+the T = 3 star at 512³ does not fuse on an H100, a shard's slab moves at
+most half the whole grid's bytes (and 1 shard is the unsharded plan), and
+a warm cache hit takes under 1 ms.
 
 ``--tuned`` also prints the measured candidate table the tune loop
 (``python -m repro_torch.plan.tune``) stored for the request, if any:
@@ -118,6 +123,14 @@ def format_plan(plan: StencilPlan, validation: dict | None = None) -> str:
                 "  stage dtypes: "
                 + " -> ".join(dt or "<input>" for dt in dts)
             )
+    if plan.num_shards > 1:
+        lines.append(
+            f"  sharding: {plan.num_shards} shards over axis "
+            f"{plan.shard_axis} (mesh axis {req.mesh_axis!r}); per-shard "
+            f"traffic {_fmt_bytes(plan.per_shard_traffic_bytes)}, halo "
+            f"exchange {_fmt_bytes(plan.halo_exchange_bytes)} (all figures "
+            "below are one shard's column slab)"
+        )
     if len(plan.depth_ms) > 1:
         lines.append("  fused-depth scores (whole chain, modelled):")
         lines.append("    depth   time ms        traffic  flops(streaming)"
@@ -163,7 +176,9 @@ def format_plan(plan: StencilPlan, validation: dict | None = None) -> str:
 def plan_json_doc(plan: StencilPlan) -> dict:
     """The ``--json`` document: the full frozen plan (round-trips through
     ``StencilPlan.from_dict``), the request's canonical stencil program with
-    its inferred per-value bounds, and the per-depth score table."""
+    its inferred per-value bounds, the per-depth score table, and the
+    sharding fields a trace's launch rows carry (``modeled_bytes``: every
+    shard's traffic plus the exchange)."""
     program = value_bounds = None
     if plan.request.program:
         from ..ir import Program, infer_bounds
@@ -188,6 +203,14 @@ def plan_json_doc(plan: StencilPlan) -> dict:
             }
             for (d, ms), (_, tr, fl) in zip(plan.depth_ms, plan.depth_scores)
         ],
+        "sharding": {
+            "num_shards": plan.num_shards,
+            "shard_axis": plan.shard_axis,
+            "per_shard_traffic_bytes": plan.per_shard_traffic_bytes,
+            "halo_exchange_bytes": plan.halo_exchange_bytes,
+            "modeled_bytes": (plan.per_shard_traffic_bytes * plan.num_shards
+                              + plan.halo_exchange_bytes),
+        },
     }
 
 
@@ -232,6 +255,9 @@ def smoke() -> int:
                                stages=[star_stencil(3, 1), offs])),
         ("ring_bf16", dict(shape=(256,) * 3, offsets=offs, time_steps=4,
                            dtypes=["bfloat16"] * 3 + ["float32"])),
+        # Column sharding: the planner tiles the worst shard's slab, which
+        # must move well under the whole grid's bytes.
+        ("sharded_4", dict(shape=(256,) * 3, offsets=offs, num_shards=4)),
         ("conv", dict(shape=(2048, 5376), offsets=conv, dtype_bytes=2,
                       n_operands=2)),
     ]
@@ -258,6 +284,20 @@ def smoke() -> int:
             assert plan.modeled_ms <= trap.modeled_ms
             assert {d for d, _ in plan.depth_ms} >= \
                 {d for d, _ in trap.depth_ms}, (plan.depth_ms, trap.depth_ms)
+        if name == "sharded_4":
+            base = planner.plan(**dict(kw, num_shards=1))
+            assert plan.num_shards == 4 and plan.shard_axis is not None
+            assert plan.shard_axis != plan.sweep_axis
+            assert plan.halo_exchange_bytes > 0
+            assert plan.per_shard_traffic_bytes == plan.traffic_bytes
+            # The per-card win: one shard's slab moves well under the
+            # whole grid's bytes (ideally a quarter).
+            assert plan.per_shard_traffic_bytes <= base.traffic_bytes / 2, (
+                plan.per_shard_traffic_bytes, base.traffic_bytes)
+            # 1 shard is the unsharded request: same plan, same key.
+            assert base == planner.plan(**{k: v for k, v in kw.items()
+                                           if k != "num_shards"})
+            assert plan.request.cache_key() != base.request.cache_key()
         warm = []
         for _ in range(3):  # best-of-3: absorb one-time warmup/GC noise
             t0 = time.perf_counter()
@@ -293,6 +333,8 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--budget", type=int, default=None,
                     help="shared-memory bytes per CTA (default 227 KB)")
     ap.add_argument("--dtype-bytes", type=int, default=4)
+    ap.add_argument("--num-shards", type=int, default=1,
+                    help="plan the column-sharded launch over N devices")
     ap.add_argument("--time-steps", type=int, default=1,
                     help="apply the stencil T times (fused where it pays)")
     ap.add_argument("--window-kind", default="auto",
@@ -342,6 +384,7 @@ def main(argv: list[str] | None = None) -> int:
         shape=shape, offsets=offs, dtype_bytes=args.dtype_bytes,
         vmem_budget=args.budget, geometry=geometry,
         aligned=not args.unaligned, time_steps=args.time_steps,
+        num_shards=args.num_shards,
         window_kind=args.window_kind,
         dtypes=args.dtypes.split(",") if args.dtypes else None,
         hardware=hardware,

@@ -43,9 +43,14 @@ asserts it never models slower than legacy.  A planner built with
 a winner measured for the same request on the same device (``device=``,
 default the card) over its own choice; a miss plans analytically,
 unchanged.  With recording on (:mod:`repro_torch.obs`) every plan is a
-``plan`` span.  Not ported yet: the column-sharded slab (``ROADMAP.md``
-queue A item 11: a request with ``num_shards > 1`` raises
-``NotImplementedError``).
+``plan`` span.
+
+With ``num_shards=S > 1`` (column sharding) step 4 runs on the *worst
+shard's column slab*, with the sweep kept off the shard axis, so every
+time, traffic and flop figure is per shard; the plan also freezes the
+shard axis and the halo-exchange bytes, which it reports but does not
+score (as the reference prices them).  ``num_shards=1`` is the same
+request as an unsharded one.
 """
 
 from __future__ import annotations
@@ -141,8 +146,9 @@ class _Survey:
 
     __slots__ = (
         "request", "T", "halo", "stage_halos", "lattice", "pad", "work",
-        "extras", "legacy", "legacy_priced", "per_depth", "scored", "tiled",
-        "price_chain", "window_kind",
+        "work_full", "shard_axis", "stage_dbs", "extras", "legacy",
+        "legacy_priced", "per_depth", "scored", "tiled", "price_chain",
+        "window_kind",
     )
 
     def __init__(self, **kw):
@@ -359,11 +365,6 @@ class Planner:
     ) -> StencilPlan:
         """The model-driven plan (PlanCache-memoized), never consulting the
         tuned DB — the autotuner's baseline and candidate source."""
-        if request.num_shards > 1:
-            raise NotImplementedError(
-                "planning a column-sharded launch (num_shards > 1) is not in "
-                "the port yet: ROADMAP.md queue A, item 11 (column sharding)"
-            )
         key = key if key is not None else request.cache_key()
         cached = self.cache.get(key)
         if cached is not None:
@@ -380,8 +381,9 @@ class Planner:
         """The top-``k`` candidate plans by modelled chain time:
         ``candidates()[0]`` is :meth:`plan`'s choice, the rest the best
         tile of each other (fusion depth, sweep axis) and the legacy
-        tile, ranked by modelled time.  Every returned plan executes this
-        request correctly; only their cost fields differ."""
+        tile — under sharding, for every other shard axis too — ranked by
+        modelled time.  Every returned plan executes this request
+        correctly; only their cost fields differ."""
         if request is None:
             kw.setdefault("strategy", self.strategy)
             request = PlanRequest.make(**kw)
@@ -389,30 +391,51 @@ class Planner:
         k = int(k)
         if k <= 1:
             return [analytic]
-        sv = self._survey(request)
-        seen = {(analytic.tile, analytic.sweep_axis, analytic.fused_depth)}
+        seen = {(analytic.tile, analytic.sweep_axis, analytic.fused_depth,
+                 analytic.shard_axis)}
         pool: list[tuple] = []
-        axes = [i for i, n in enumerate(sv.work) if n > 1] or [0]
-        for depth in sorted(sv.scored):
-            for rank, axis in enumerate(axes):
-                try:
-                    c = sv.tiled(depth, sv.extras, sweep_axis=axis)
-                except ValueError:
-                    continue  # no tile fits on this axis
-                priced = sv.price_chain(depth, c)
-                sig = (c.tile, c.sweep_axis, int(depth))
-                if priced is None or sig in seen:
-                    continue
+
+        def harvest(sv: "_Survey", shard_rank: int) -> None:
+            axes = [i for i, n in enumerate(sv.work)
+                    if n > 1 and i != sv.shard_axis]
+            axes = axes or [i for i in range(len(sv.work))
+                            if i != sv.shard_axis][:1]
+            for depth in sorted(sv.scored):
+                for rank, axis in enumerate(axes):
+                    try:
+                        c = sv.tiled(depth, sv.extras, sweep_axis=axis)
+                    except ValueError:
+                        continue  # no tile fits on this axis
+                    priced = sv.price_chain(depth, c)
+                    sig = (c.tile, c.sweep_axis, int(depth), sv.shard_axis)
+                    if priced is None or sig in seen:
+                        continue
+                    seen.add(sig)
+                    pool.append((priced[0], depth, shard_rank, rank, sv, c,
+                                 priced))
+            sig = (sv.legacy.tile, sv.legacy.sweep_axis, 1, sv.shard_axis)
+            if sv.legacy_priced is not None and sig not in seen:
                 seen.add(sig)
-                pool.append((priced[0], depth, rank, c, priced))
-        sig = (sv.legacy.tile, sv.legacy.sweep_axis, 1)
-        if sv.legacy_priced is not None and sig not in seen:
-            pool.append((sv.legacy_priced[0], 1, len(axes), sv.legacy,
-                         sv.legacy_priced))
-        pool.sort(key=lambda t: (t[0], t[1], t[2]))
+                pool.append((sv.legacy_priced[0], 1, shard_rank, len(axes),
+                             sv, sv.legacy, sv.legacy_priced))
+
+        sv0 = self._survey(request)
+        harvest(sv0, 0)
+        if request.num_shards > 1:
+            # Another column partition changes the slab, the sweep axes
+            # it admits and the exchange bytes: each is a candidate.
+            dims = [i for i, n in enumerate(sv0.work_full) if n > 1]
+            for j, axis in enumerate(a for a in dims
+                                     if a != sv0.shard_axis):
+                try:
+                    sva = self._survey(request, shard_axis_override=axis)
+                except (ValueError, AssertionError):
+                    continue  # no feasible tiling under this partition
+                harvest(sva, j + 1)
+        pool.sort(key=lambda t: (t[0], t[1], t[2], t[3]))
         return [analytic] + [
             self._freeze(sv, int(depth), c, priced)
-            for _ms, depth, _rank, c, priced in pool[: k - 1]
+            for _ms, depth, _sr, _rank, sv, c, priced in pool[: k - 1]
         ]
 
     def _compile(self, request: PlanRequest) -> StencilPlan:
@@ -427,7 +450,8 @@ class Planner:
             sv, fused_depth, sv.per_depth[fused_depth], sv.scored[fused_depth]
         )
 
-    def _survey(self, request: PlanRequest) -> "_Survey":
+    def _survey(self, request: PlanRequest,
+                shard_axis_override: int | None = None) -> "_Survey":
         shape = request.shape
         d = len(shape)
         stages = request.stages
@@ -463,7 +487,7 @@ class Planner:
                     "padding not required"
                 ),
             )
-        work = pad.padded_shape
+        work_full = pad.padded_shape
         T = request.time_steps
         db = request.dtype_bytes
         device = HopperDevice.from_key(request.hardware)
@@ -485,6 +509,28 @@ class Planner:
         else:
             kinds = (wk_req,)
         chosen = {"wk": kinds[0]}  # rebound after scoring (closure default)
+
+        # Column sharding: a sharded request tiles the worst shard's slab,
+        # the sweep kept off the shard axis, which is the longest axis
+        # (ties to the lowest index) unless the caller names another.
+        shard_axis = None
+        work = work_full
+        if request.num_shards > 1:
+            dims = [i for i, n in enumerate(work_full) if n > 1] \
+                or list(range(d))
+            if shard_axis_override is not None:
+                if shard_axis_override not in dims:
+                    raise ValueError(
+                        f"shard axis {shard_axis_override} not partitionable "
+                        f"on padded grid {work_full}"
+                    )
+                shard_axis = int(shard_axis_override)
+            else:
+                shard_axis = max(dims, key=lambda i: (work_full[i], -i))
+            work = tuple(
+                max(-(-n // request.num_shards), 1) if i == shard_axis else n
+                for i, n in enumerate(work_full)
+            )
 
         def kernel_of(depth: int) -> str:
             return "chain" if depth > 1 or chain_only else "apply"
@@ -508,6 +554,7 @@ class Planner:
                 stage_halos=launch, window_kind=window_kind or chosen["wk"],
                 kernel=kernel, stage_taps=taps, n_inputs=n_in,
                 out_bytes=out_db, device=device,
+                exclude_sweep_axis=shard_axis,
             )
 
         def price_chain(depth: int, c: TileChoice, window_kind=None):
@@ -623,7 +670,8 @@ class Planner:
             scored[1] = legacy_priced
         return _Survey(
             request=request, T=T, halo=halo, stage_halos=stage_halos,
-            lattice=lattice, pad=pad, work=work, extras=extras,
+            lattice=lattice, pad=pad, work=work, work_full=work_full,
+            shard_axis=shard_axis, stage_dbs=stage_dbs, extras=extras,
             legacy=legacy, legacy_priced=legacy_priced, per_depth=per_depth,
             scored=scored, tiled=tiled, price_chain=price_chain,
             window_kind=window_kind,
@@ -645,13 +693,37 @@ class Planner:
             sv.legacy_priced if sv.legacy_priced is not None
             else (T * sv.legacy.modeled_ms, T * sv.legacy.traffic_bytes)
         )
+        # Sharding: the scores are the worst shard's already; what is left
+        # is the exchange.  Each of the S − 1 interior boundaries moves the
+        # launch's shard-axis cone over the halo'd cross extent of the
+        # whole padded grid, once per launch and once per RHS, at the
+        # launch input's element width (a later launch reads the previous
+        # stage's output).
+        grid_full = tuple(-(-n // t)
+                          for n, t in zip(sv.work_full, choice.tile))
+        halo_exchange = 0
+        a = sv.shard_axis
+        if a is not None:
+            if sv.stage_halos is not None:
+                cones = [chain_halo(sv.stage_halos[i: i + fused_depth])
+                         for i in range(0, T, fused_depth)]
+            else:
+                cones = [sv.halo]
+            p_rhs = max(len(request.offsets), 1)
+            for li, cone in enumerate(cones):
+                ext = prod(grid_full[i] * choice.tile[i] + lo + hi
+                           for i, (lo, hi) in enumerate(cone) if i != a)
+                in_db = (sv.stage_dbs[li * fused_depth - 1]
+                         if sv.stage_dbs and li > 0 else request.dtype_bytes)
+                halo_exchange += (p_rhs * (request.num_shards - 1)
+                                  * (cone[a][0] + cone[a][1]) * ext * in_db)
         return StencilPlan(
             request=request,
             lattice=sv.lattice,
             pad=sv.pad,
             tile=choice.tile,
             sweep_axis=sweep,
-            grid=choice.grid,
+            grid=grid_full,
             pipelined=bool(
                 request.pipelined and h_s > 0 and choice.grid[sweep] > 1
             ),
@@ -673,7 +745,10 @@ class Planner:
                 for depth, (_ms, tr, _lb, fs, _fr) in sorted(sv.scored.items())
             ),
             window_kind=sv.window_kind,
+            num_shards=int(request.num_shards),
+            shard_axis=a,
             per_shard_traffic_bytes=int(traffic_total),
+            halo_exchange_bytes=int(halo_exchange),
             modeled_ms=float(ms_total),
             kernel=choice.kernel,
             ctas_per_sm=int(choice.ctas_per_sm),

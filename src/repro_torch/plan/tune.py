@@ -36,7 +36,10 @@ seeded with 0 (the time depends on shapes and dtypes, not values) and
 launches each candidate with ``plan=candidate``, so tuning never recurses
 into tuning.  ``AutoTuner(device=None)`` measures on the card and raises
 without CUDA; the tests pass ``device="cpu"``, which times the kernels'
-plain versions.
+plain versions.  A sharded request (``num_shards > 1``) races sharded
+launches on the mesh the call hands over (``plan(..., mesh=)``); without
+one the launch builds its own over ``num_shards`` devices of the tuner's
+kind, which on a machine with fewer cards raises.
 """
 
 from __future__ import annotations
@@ -166,7 +169,7 @@ class AutoTuner:
     _RACE_QUANT = (0.05, 0)
 
     def _launch_fn(self, request: PlanRequest, plan: StencilPlan,
-                   quants=None):
+                   quants=None, mesh=None):
         """A zero-arg closure running the request's whole computation under
         ``plan`` — the thing :func:`repro_torch.runtime.timing.measure`
         times.  Inputs are drawn here on the tuner's device; weights are
@@ -179,7 +182,8 @@ class AutoTuner:
         ``quants`` attaches per-stage ``(scale, zero_point)`` int8
         quantization.  An int8 stage that the request names without one
         gets :attr:`_RACE_QUANT`: the port refuses an int8 stage without a
-        quantization, where the JAX package would truncate."""
+        quantization, where the JAX package would truncate.  A sharded
+        plan launches on ``mesh`` (the call's own)."""
         import torch
 
         from .. import ir
@@ -220,6 +224,7 @@ class AutoTuner:
             us = (mk(),)
             return lambda: multi_stencil_pallas(
                 us, None, None, plan=plan, program=prog, device=dev,
+                mesh=mesh,
             )
         offsets_list = [
             np.asarray(g, dtype=np.int64) for g in request.offsets
@@ -228,7 +233,7 @@ class AutoTuner:
         us = tuple(mk() for _ in offsets_list)
         return lambda: multi_stencil_pallas(
             us, offsets_list, weights_list, plan=plan,
-            time_steps=request.time_steps, device=dev,
+            time_steps=request.time_steps, device=dev, mesh=mesh,
         )
 
     # -- the §15 variant survey --------------------------------------------
@@ -313,12 +318,13 @@ class AutoTuner:
     # -- the tune pass -----------------------------------------------------
 
     def tune(
-        self, request: PlanRequest | None = None, /, **kw
+        self, request: PlanRequest | None = None, /, mesh=None, **kw
     ) -> TuneRecord:
         """Measure the top-k candidates of one request and persist the
         result.  Candidate 0 is the planner's analytic argmin; the winner
         is the measured argmin (ties break toward the analytic choice),
-        so ``never_slower`` holds by construction."""
+        so ``never_slower`` holds by construction.  A sharded request's
+        candidates launch on ``mesh``."""
         from ..runtime.timing import measure
 
         if request is None:
@@ -336,7 +342,7 @@ class AutoTuner:
             entries += self._variants(request, cands[0])
             timed = []
             for rank, (plan, lreq, qns, advisory) in enumerate(entries):
-                fn = self._launch_fn(lreq, plan, quants=qns)
+                fn = self._launch_fn(lreq, plan, quants=qns, mesh=mesh)
                 if obs.enabled():
                     with obs.span(
                         "tune_candidate", plan_key=key, rank=rank,
@@ -428,18 +434,20 @@ class AutoTuner:
         self.last_record = rec
         return rec
 
-    def plan(self, request: PlanRequest | None = None, /, **kw) -> StencilPlan:
+    def plan(self, request: PlanRequest | None = None, /, mesh=None,
+             **kw) -> StencilPlan:
         """Planning entry point with measured preference: warm DB hit →
         the measured winner (no re-measurement); miss → tune, then the
         winner.  Signature-compatible with ``Planner.plan``, which is
-        what lets ``stencil_pallas(tune=...)`` swap it in."""
+        what lets ``stencil_pallas(tune=...)`` swap it in; ``mesh`` is
+        where a sharded race launches."""
         if request is None:
             kw.setdefault("strategy", self.planner.strategy)
             request = PlanRequest.make(**kw)
         if obs.enabled():
             with obs.span("plan", key=request.cache_key(),
                           source="autotuner") as sp:
-                plan = self._plan_resolve(request)
+                plan = self._plan_resolve(request, mesh)
                 sp.set(
                     tuned=self.last_plan_tuned,
                     tile=list(plan.tile),
@@ -448,9 +456,9 @@ class AutoTuner:
                     modeled_ms=plan.modeled_ms,
                 )
             return plan
-        return self._plan_resolve(request)
+        return self._plan_resolve(request, mesh)
 
-    def _plan_resolve(self, request: PlanRequest) -> StencilPlan:
+    def _plan_resolve(self, request: PlanRequest, mesh=None) -> StencilPlan:
         rec = None
         if not self.force:
             rec = self.db.get(
@@ -458,7 +466,7 @@ class AutoTuner:
             )
         self.last_plan_tuned = rec is not None
         if rec is None:
-            rec = self.tune(request)
+            rec = self.tune(request, mesh=mesh)
         self.last_record = rec
         return rec.winner_plan
 
@@ -514,7 +522,7 @@ def format_record(rec: TuneRecord) -> str:
         f"  tuned at {rec.tuned_at}  (schema v{rec.schema}, "
         f"planner v{rec.planner_version})",
         "  candidates (measured on the backend above):",
-        "    #  tile              sweep depth window     dtypes   "
+        "    #  tile              sweep depth shard window     dtypes   "
         "modeled MiB  modeled ms  measured      iqr        model/meas",
     ]
     for i, c in enumerate(rec.candidates):
@@ -529,7 +537,7 @@ def format_record(rec: TuneRecord) -> str:
             dts = "/".join(sorted(named)) or "-"
         lines.append(
             f"    {i}  {str(c.tile):<17} {str(c.sweep_axis):>5} "
-            f"{c.fused_depth:>5} "
+            f"{c.fused_depth:>5} {str(c.shard_axis):>5} "
             f"{str(c.window_kind):>9} {dts:>8} "
             f"{c.modeled_bytes / (1 << 20):>12.2f} "
             f"{c.modeled_ms:>11.4f}  "
@@ -658,6 +666,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="shared-memory bytes per CTA (default 227 KB)")
     ap.add_argument("--time-steps", type=int, default=1,
                     help="tune the T-application chain")
+    ap.add_argument("--num-shards", type=int, default=1,
+                    help="tune the column-sharded launch over N devices: "
+                         "the first N cards, or the CPU with --device cpu")
     ap.add_argument("--unaligned", action="store_true",
                     help="free tile extents (no 128-byte minor grain)")
     ap.add_argument("-k", type=int, default=4,
@@ -705,11 +716,17 @@ def main(argv: list[str] | None = None) -> int:
         planner=Planner(cache=PlanCache(persistent=False)),
     )
     geometry = None if args.geom.lower() == "none" else _parse_shape(args.geom)
+    mesh = None
+    if args.num_shards > 1:
+        from ..launch.mesh import make_column_mesh
+
+        mesh = make_column_mesh(args.num_shards, device=args.device)
     tuner.plan(
         shape=shape, offsets=offs, dtype_bytes=args.dtype_bytes,
         vmem_budget=args.budget, geometry=geometry,
         time_steps=args.time_steps, aligned=not args.unaligned,
         hardware=_planning_hardware(resolve_device(args.device)),
+        num_shards=args.num_shards, mesh=mesh,
     )
     rec = tuner.last_record
     if args.json:

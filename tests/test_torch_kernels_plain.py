@@ -737,18 +737,21 @@ def test_plain_path_counts_no_launch():
     pytest.param(dict(tune=True), id="call0"),
     pytest.param(dict(num_shards=2), id="call1"),
     pytest.param(dict(trace="t.json"), id="call2"),
-    pytest.param(dict(mesh=object()), id="call3"),
+    pytest.param(dict(mesh=2), id="call3"),
     pytest.param(dict(tile=None, num_shards=2), id="call4"),
     pytest.param(dict(tile=None, shard_axis=1), id="call5"),
     pytest.param(dict(tile=None, tune=True), id="call6"),
 ])
 def test_arguments_outside_the_slice_name_their_roadmap_item(
         call, tmp_path, monkeypatch):
-    """Sharding (``ROADMAP.md`` queue A item 11) raises naming its item.
-    ``tune=`` and ``trace=`` (items 9 and 10) are in the port: ``tune=``
-    beside a tile is the caller's contradiction (``ValueError``, as in
-    the JAX package), ``trace=`` writes a trace that reconciles, and
-    ``tune=`` without a tile tunes on the call's device."""
+    """The arguments that once raised naming their ``ROADMAP.md`` item
+    all run now.  ``tune=`` and ``trace=`` (items 9 and 10): ``tune=``
+    beside a tile is the caller's contradiction (``ValueError``, as in the
+    JAX package), ``trace=`` writes a trace that reconciles, and ``tune=``
+    without a tile tunes on the call's device.  Sharding (item 11):
+    ``num_shards=``, ``mesh=`` (a CPU mesh of 2 shards here) and
+    ``shard_axis=``, with a tile or without, equal the unsharded call."""
+    from repro_torch.launch.mesh import make_column_mesh
     from repro_torch.obs.report import reconcile, summarize
     from repro_torch.obs.trace_event import load_trace
     from repro_torch.plan import PlanCache, Planner
@@ -763,6 +766,8 @@ def test_arguments_outside_the_slice_name_their_roadmap_item(
     kw.update(call)
     if "trace" in call:
         kw["trace"] = str(tmp_path / call["trace"])
+    if "mesh" in call:
+        kw["mesh"] = make_column_mesh(call["mesh"], device="cpu")
     x = np.zeros((12, 13, 14), np.float32)
     if "tune" in call and kw["tile"] is not None:
         with pytest.raises(ValueError, match="tune="):
@@ -775,8 +780,12 @@ def test_arguments_outside_the_slice_name_their_roadmap_item(
         else:
             assert tune_mod.resolve_tuner(True, "cpu").last_record
     else:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            st.stencil_pallas(x, O7, W7, **kw)
+        x = np.random.default_rng(3).standard_normal(x.shape).astype(
+            np.float32)
+        out = st.stencil_pallas(x, O7, W7, **kw)
+        unsharded = {k: v for k, v in kw.items()
+                     if k not in ("num_shards", "mesh", "shard_axis")}
+        assert torch.equal(out, st.stencil_pallas(x, O7, W7, **unsharded))
 
 
 def test_boundary_and_quantized_programs_name_their_roadmap_item():

@@ -5,9 +5,9 @@
   garbage; ``REPRO_TORCH_TRACE`` activation in a subprocess; the disabled
   path allocates nothing (``tracemalloc``); the plan span and the plan
   cache's counters; the ``measure`` span and its counter; cache and tuned
-  DB degrade; a traced, tuned run reconciles.  Left out: the JAX
-  package's interpret-fallback case (the port has no fallback, so no
-  such counter) and its sharded case (``ROADMAP.md`` queue A item 11).
+  DB degrade; a traced, tuned run reconciles, unsharded and over 4
+  shards.  Left out: the JAX package's interpret-fallback case (the port
+  has no fallback, so no such counter).
 * Parity: the same program traced in JAX (interpret mode, as
   ``test_obs.py`` runs it) and in the port (``device="cpu"``) gives the
   same sequence of ``kernel_launch`` spans — tile, sweep axis, fused
@@ -392,6 +392,42 @@ def test_traced_tuned_run_reconciles(tmp_path, capsys):
     # the CLI agrees, and its table says what a span's time is
     assert report_main([trace, "--check"]) == 0
     assert "not the kernel's time" in capsys.readouterr().out
+
+
+def test_traced_tuned_sharded_run_reconciles(tmp_path):
+    """The reference's traced, tuned, 4-shard chain on a CPU mesh: the
+    trace reconciles, each launch span carries its shard count and has a
+    ``halo_exchange`` span beside it, and the CLI agrees."""
+    from repro_torch.kernels.ref import stencil_ref
+    from repro_torch.launch.mesh import make_column_mesh
+
+    trace = str(tmp_path / "run.json")
+    (x,) = _data((16, 32, 128), seed=0)
+    w = [1.0 / len(O7)] * len(O7)
+    tuner = AutoTuner(
+        db=TunedPlanDB(persistent=False),
+        planner=Planner(cache=PlanCache(persistent=False)),
+        k=2, reps=2, warmup=1, device="cpu",
+    )
+    mesh = make_column_mesh(4, device="cpu")
+    out = tst.stencil_iterate(x, O7, w, 3, num_shards=4, mesh=mesh,
+                              tune=tuner, trace=trace, device="cpu")
+    ref = torch.as_tensor(x)
+    for _ in range(3):
+        ref = stencil_ref(ref, O7, w)
+    np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=2e-5,
+                               rtol=2e-5)
+    assert not obs.enabled(), "trace= must restore the disabled state"
+    summary = summarize(validate_trace(_load(trace)))
+    assert reconcile(summary) == [], "trace does not reconcile"
+    assert summary["counters"]["launches"] == len(summary["launches"]) > 0
+    # The race's launches exchange too: at least one span a call launch.
+    assert summary["n_exchange_spans"] >= len(summary["launches"])
+    assert summary["races"] and summary["races"][0]["candidates"] >= 2
+    launch = summary["launches"][-1]
+    assert launch["num_shards"] == 4
+    assert launch["modeled_bytes"] > 0 and launch["fused_depth"] >= 1
+    assert report_main([trace, "--check"]) == 0
 
 
 def test_report_check_fails_on_a_mismatch(tmp_path, capsys):

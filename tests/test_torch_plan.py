@@ -21,6 +21,7 @@ The planned launches on the card are in ``test_torch_kernels_cuda.py``.
 
 import dataclasses
 import json
+from math import prod
 
 import numpy as np
 import pytest
@@ -479,9 +480,42 @@ def test_candidates_start_with_the_plan_and_all_run():
 
 
 def test_sharded_requests_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        Planner(cache=PlanCache(persistent=False)).plan(
-            shape=(32, 32, 32), offsets=O13, num_shards=2)
+    """A sharded request, once refused naming ``ROADMAP.md`` item 11, now
+    plans the worst shard's slab: the reference's
+    ``test_plan_v4_shard_fields`` on the port's planner, plus the
+    exchange bytes of a split chain at the stages' own widths and the
+    alternative shard axes among the candidates."""
+    planner = Planner(cache=PlanCache(persistent=False))
+    kw = dict(shape=(256, 256, 256), offsets=O13, vmem_budget=16 << 20,
+              aligned=True)
+    base = planner.plan(**kw)
+    p4 = planner.plan(**kw, num_shards=4)
+    assert base.num_shards == 1 and base.shard_axis is None
+    assert base.halo_exchange_bytes == 0
+    assert base.per_shard_traffic_bytes == base.traffic_bytes
+    assert p4.shard_axis is not None and p4.shard_axis != p4.sweep_axis
+    assert p4.halo_exchange_bytes > 0
+    assert p4.per_shard_traffic_bytes <= base.traffic_bytes / 2
+    assert p4.modeled_ms < base.modeled_ms
+    assert p4.grid == tuple(-(-256 // t) for t in p4.tile)
+    assert StencilPlan.from_json(p4.to_json()) == p4
+    assert planner.plan(**kw, num_shards=1) == base
+    # Each launch of a split chain exchanges its input at that input's
+    # width: the int8 codes of a quantized stage move a byte an element.
+    req = dict(shape=(64, 64, 128), stages=[O7] * 3, num_shards=2,
+               dtypes=("int8", "int8", None), bcs=(("reflect", 0.0),) * 3)
+    split = next(p for p in planner.candidates(k=8, **req)
+                 if p.fused_depth == 1)
+    a = split.shard_axis
+    ext = prod(g * t + 2 for i, (g, t) in enumerate(zip(split.grid,
+                                                          split.tile))
+               if i != a)
+    assert split.halo_exchange_bytes == (4 + 1 + 1) * 2 * ext
+    # The race sees the other partitions too.
+    cands = planner.candidates(k=6, **kw, num_shards=4)
+    assert cands[0] == p4
+    assert len({c.shard_axis for c in cands}) > 1
+    assert all(c.shard_axis != c.sweep_axis for c in cands)
 
 
 # -- the plan cache ---------------------------------------------------------------

@@ -56,7 +56,8 @@ def test_the_scan_sees_the_port():
     assert "src/repro_torch/models/ssm.py" in names
     for module in ("obs/__init__.py", "obs/recorder.py", "obs/report.py",
                    "obs/trace_event.py", "runtime/__init__.py",
-                   "runtime/timing.py", "plan/tune.py", "plan/tunedb.py"):
+                   "runtime/timing.py", "plan/tune.py", "plan/tunedb.py",
+                   "launch/mesh.py", "parallel/shard_columns.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 

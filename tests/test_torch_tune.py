@@ -477,12 +477,47 @@ def test_int8_request_races_with_a_quantization():
     assert torch.equal(got, whole)
 
 
-# -- sharded tuning (ROADMAP.md queue A item 11) -------------------------------
+# -- sharded tuning -------------------------------------------------------------
 
 
-def test_sharded_request_tunes_sharded_launch():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        _tuner().tune(_request(num_shards=2))
+def test_sharded_request_tunes_sharded_launch(monkeypatch):
+    """The reference's assertions on a CPU mesh: the race launches every
+    candidate sharded on the mesh it is handed, and prices all shards
+    plus the exchange; the winner run sharded equals its unsharded
+    launch."""
+    from repro_torch.launch.mesh import make_column_mesh
+    from repro_torch.parallel import shard_columns
+
+    mesh = make_column_mesh(2, device="cpu")
+    seen = []
+    real = shard_columns.sharded_stencil_call
+
+    def spy(*a, **kw):
+        seen.append(kw["mesh"])
+        return real(*a, **kw)
+
+    monkeypatch.setattr(shard_columns, "sharded_stencil_call", spy)
+    tuner = _tuner()
+    rec = tuner.tune(_request(num_shards=2), mesh=mesh)
+    assert rec.never_slower
+    assert rec.winner_plan.num_shards == 2
+    assert all(c.shard_axis is not None for c in rec.candidates)
+    assert seen and all(m is mesh for m in seen)
+    w = rec.winner_plan
+    assert rec.candidates[rec.winner].modeled_bytes == (
+        w.per_shard_traffic_bytes * w.num_shards + w.halo_exchange_bytes
+    )
+    x = np.random.default_rng(4).standard_normal(KW["shape"]).astype(
+        np.float32)
+    got = tst.stencil_pallas(x, O7, W7, plan=w, mesh=mesh, device="cpu")
+    base = tst.stencil_pallas(x, O7, W7, plan=w, num_shards=1, device="cpu")
+    assert torch.equal(got, base)
+    # tune=True on a sharded call hands the call's mesh to the race.
+    seen.clear()
+    again = tst.stencil_pallas(x, O7, W7, vmem_budget=KW["vmem_budget"],
+                               mesh=mesh, tune=_tuner(), device="cpu")
+    assert seen and all(m is mesh for m in seen)
+    assert torch.equal(again, base)
 
 
 # -- kernel plumbing ----------------------------------------------------------
