@@ -62,9 +62,10 @@ points at full size:
   measured and that the warm call counts one ``tunedb_hit``, measures
   nothing, launches nothing while it plans and plans in under 1 ms of host
   time (median of 20 calls); and re-measures the winner against the
-  analytic plan in 6 alternating rounds (``tuned_over_analytic``, the
-  median ratio, at most 1.05).  Plans and tuned records go to fresh
-  directories of the run, never to the home directory;
+  analytic plan in 20 alternating rounds of 10 calls
+  (``tuned_over_analytic``, the median ratio, at most 1.05).  Plans and
+  tuned records go to fresh directories of the run, never to the home
+  directory;
 * ``traced_calls`` — ``apply_f32_512``'s call and the planned int8 chain
   with ``trace=`` under ``torch.profiler``: the trace passes
   ``validate_trace``, reconciles (``report.reconcile`` and ``python -m
@@ -84,6 +85,20 @@ points at full size:
   plain version on layer 0's real conv input; prefill(S−1) + decode(1)
   against a teacher-forced forward; a 2-layer full-width model on the
   card against the CPU;
+* ``mamba2_train``      — Mamba2-2.7B at published width and depth (64
+  layers, f32 parameters, bf16 compute, weights from seed 0, the conv on
+  the kernel at tile 256) trained through ``launch.train.train_step`` on
+  the pipeline's synthetic batches at ``LM_SHAPES["train_4k"]``'s 4096
+  tokens, batch 2 (the global batch of 256 cut to one card): a cold step
+  and 3 timed steps (host clock, card synchronised; tokens/s, model flops
+  6·N·tokens against the bf16 peak, peak memory, 128 conv launches a
+  step), one step under ``torch.profiler`` (device busy and idle share,
+  kernel classes, launches), 5 steps on a repeated batch (the loss
+  falls); the conv kernel bit-equal to its plain version on layer 0's
+  training input and timed beside the plain VJP (``causal_conv1d_vjp``)
+  and their byte bounds; at 2 layers and full width, one step on the card
+  against the CPU within a stated band, and an async save, a restore into
+  fresh objects and a step bit-equal to the uninterrupted run;
 * ``planned_conv``      — the prefill conv's shape with ``tile_s=None``:
   the planned tile and the serving phase's 256, both timed.
 
@@ -130,6 +145,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12     # H100 SXM data sheet, f32 outside tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM data sheet, bf16 dense tensor cores
 # The TPU kernel each CUDA kernel replaces, and which of its parts.
 REPLACES = {
     "sweep_apply": ("src/repro/kernels/stencil.py:148", "B1+B2"),
@@ -238,21 +254,24 @@ def main() -> None:
         """Median device time of one kernel alone (the device events whose
         name holds ``kernel``; "" for any) over ``reps`` calls of ``fn``,
         from ``torch.profiler``'s CUDA events (host preparation and launch
-        overhead excluded)."""
+        overhead excluded).  A session that records no such event (seen
+        after the training step's profile of 277k launches) is taken
+        again, at most twice."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.name]
-        if not ts:
-            return "not measured: no device events recorded"
-        return statistics.median(ts)
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            ts = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.name]
+            if ts:
+                return statistics.median(ts)
+        return "not measured: no device events recorded"
 
     def cold_ms(fn) -> dict:
         """One call of ``fn`` with the chain wrapper's table cache empty:
@@ -1264,8 +1283,11 @@ def main() -> None:
     # first call races the candidates on the kernels and serves the
     # winner; the output equals the same launches on the plain versions;
     # the warm call serves the record without measuring; the winner is
-    # re-measured against candidate 0 (the analytic plan) in alternating
-    # rounds, since one call's spread reaches 13% (PERF.md §7).
+    # re-measured against candidate 0 (the analytic plan) in 20 alternating
+    # rounds of 10 calls each, since one call's spread reaches 13% and a
+    # 256^3 bf16 call takes about 0.25 ms, where a host stall moves a round
+    # by a fifth (PERF.md §6): with 6 rounds of 5 the median ratio of two
+    # near-equal plans once passed 1.05 on the card.
     gates: list = []
 
     def tuned_phase(name, call, kernel, extra=None):
@@ -1326,16 +1348,19 @@ def main() -> None:
         winner = rec.winner_plan
         analytic = tuner.planner._analytic(winner.request)
         ratios = []
-        for i in range(6):
+        for i in range(20):
             order = (("w", winner), ("a", analytic))
             times = {}
             for label, pl in (order if i % 2 == 0 else order[::-1]):
-                times[label] = time_ms(lambda: call(plan=pl), reps=5,
-                                       warmup=1)
+                times[label] = time_ms(lambda: call(plan=pl), reps=10,
+                                       warmup=2)
             ratios.append(times["w"] / times["a"])
         tuned_over = statistics.median(ratios)
         ok = (exact and measured_first and warm_ok and tuned_over <= 1.05)
-        gates.append((name, ok))
+        gates.append((name, ok, {
+            "exact": exact, "first_call_measured": measured_first,
+            "warm_ok": warm_ok, "warm_plan_host_ms": statistics.median(
+                warm_ms), "tuned_over_analytic": tuned_over}))
         rows_ = [{
             "tile": list(c.tile), "sweep_axis": c.sweep_axis,
             "fused_depth": c.fused_depth, "window_kind": c.window_kind,
@@ -1460,7 +1485,9 @@ def main() -> None:
         ok = (not problems and n_spans == sum(launched.values())
               and cli.returncode == 0
               and held.get("every_span_holds_its_kernel") is True)
-        gates.append((name, ok))
+        gates.append((name, ok, {
+            "reconcile_problems": problems, "kernel_launch_spans": n_spans,
+            "launches": launched, "report_check_rc": cli.returncode}))
         return {
             "call": name, "launches": launched, "kernel_launch_spans": n_spans,
             "reconcile_problems": problems, "report_check_rc": cli.returncode,
@@ -1646,7 +1673,9 @@ def main() -> None:
         split = device_split(sharded)
         base_split = device_split(unsharded)
         ok = equal and exact and counters_ok
-        gates.append((name, ok))
+        gates.append((name, ok, {"equals_unsharded": equal,
+                                 "exact_vs_plain": exact,
+                                 "counters_ok": counters_ok}))
         phase = {
             "phase": name, "shape": list(out.shape), "mesh": {
                 "shards": mesh4.size,
@@ -1813,7 +1842,8 @@ def main() -> None:
                == warm_trace["kernel_launch_spans"] == n_w
                and warm_trace["span_shards"] == [4]
                and sum(warm_launched.values()) == 4 * n_w)
-    gates.append(("tuned_traced_sharded_256 warm", warm_ok))
+    gates.append(("tuned_traced_sharded_256 warm", warm_ok,
+                  {"warm_launches": warm_launched, "warm_trace": warm_trace}))
     phase = sharded_phase(
         "tuned_traced_sharded_256",
         lambda: t_call(mesh=mesh4, tune=s_tuner),
@@ -1897,6 +1927,11 @@ def main() -> None:
         torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
         max_err, device_ms, host_ms, ptxas_by_function, mangled)]
 
+    # -- mamba2_train -------------------------------------------------------
+    summary["conv1d"].append(mamba2_train_phase(
+        torch, dev, card_line, emit, reset, counts, time_ms, bits_equal,
+        max_err, device_ms))
+
     # planned_conv: the prefill conv's shape with tile_s=None; the planned
     # tile against the serving phase's 256, both timed: the tile only
     # changes the padding.
@@ -1950,9 +1985,9 @@ def main() -> None:
     del xbc, cw, cb, out, p_out, diff
     torch.cuda.empty_cache()
 
-    failed = [name for name, ok in gates if not ok]
+    failed = {name: why for name, ok, why in gates if not ok}
     if failed:
-        fail(f"tuned/traced gates failed: {failed}")
+        fail(f"tuned/traced gates failed: {json.dumps(failed, default=str)}")
 
     # -- summary ---------------------------------------------------------------
     rows = []
@@ -2004,16 +2039,18 @@ def _kernel_class(name: str) -> str:
     return "other"
 
 
-def profile_breakdown(torch, fn) -> dict:
+def profile_breakdown(torch, fn, cpu=True) -> dict:
     """Device time of one call of ``fn`` by kernel class and by kernel
     (top 8), and the share of the host-clock span the device was busy,
     from ``torch.profiler``.  Measurement only: if the profiler records no
-    device events here, the result says "not measured"."""
+    device events here, the result says "not measured".  ``cpu=False``
+    records the device's activity alone (a training step's hundreds of
+    thousands of host-side op events would cost minutes to collect)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2236,6 +2273,238 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
         "operations", "bytes": nbytes, "flops": flops,
         "teacher_forcing_max_abs_err": tf_err,
         "card_vs_cpu_2layer_max_abs_err": cpu_err,
+        "card": card_line,
+    }
+    emit(phase)
+    return phase
+
+
+def stream_ms(torch, fn, n) -> float:
+    """Time of one call of ``fn`` over ``n`` calls issued back to back
+    between two CUDA events (after one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
+                       bits_equal, max_err, device_ms) -> dict:
+    """The ``mamba2_train`` phase; returns its record (a conv record)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import conv1d
+    from repro_torch.launch.train import restore_state, save_state, train_step
+    from repro_torch.models import get_model, ssm
+    from repro_torch.models.layers import embed_tokens, rms_norm
+    from repro_torch.optim import OptConfig, adamw_init
+
+    batch, seq = 2, LM_SHAPES["train_4k"].seq_len  # global batch 256 -> 2
+    cfg = get_config("mamba2-2.7b")
+    cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
+        cfg.ssm, pallas_conv=True, conv_tile=256))
+    cdt = cfg.compute_dtype
+    model = get_model(cfg, device=dev)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    opt_cfg = OptConfig()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    opt_state = adamw_init(dict(params.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+
+    def step(i, ocfg=opt_cfg, b=None):
+        nonlocal params, opt_state
+        params, opt_state, met = train_step(
+            model, params, opt_state, data.batch_at(i) if b is None else b,
+            ocfg)
+        return met
+
+    # The main path: counts zeroed just before, read just after; a cold
+    # step, then 3 timed steps (host clock, the card synchronised).
+    reset()
+    per_step, step_s, losses, gnorms = [], [], [], []
+    for i in range(4):
+        before = counts()["conv1d"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(i)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(met["grad_norm"]))
+        per_step.append(counts()["conv1d"] - before)
+    launched = counts()
+    assert per_step == [2 * cfg.n_layers] * 4, per_step
+    assert launched["sweep_apply"] == 0 and launched["sweep_chain"] == 0
+    assert all(np.isfinite(v) for v in losses + gnorms), (losses, gnorms)
+    timed_ms = [t * 1e3 for t in step_s[1:]]
+    step_ms = statistics.median(timed_ms)
+    tokens = batch * seq
+    model_flops = 6 * n_params * tokens
+    # Where a step's time goes (after the timed steps: its cost is in no
+    # time above); device activity only.
+    prof = profile_breakdown(torch, lambda: step(4), cpu=False)
+    # The loss on a repeated batch over 5 steps (lr 3e-4 from the first).
+    repeat = data.batch_at(0)
+    fast = OptConfig(lr=3e-4, warmup_steps=1)
+    repeated = [float(step(0, fast, repeat)["loss"]) for _ in range(5)]
+    assert repeated[-1] < repeated[0], repeated
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # The conv kernel on layer 0's training input (no state), against its
+    # plain version; the plain VJP on the same input, timed beside it.
+    with torch.no_grad():
+        toks = torch.as_tensor(repeat["tokens"]).to(dev).long()
+        p0 = params.layers[0].tensors()
+        x0 = embed_tokens(cfg, params.embed.tensors(), toks)
+        _, xbc, _ = ssm._in_proj(cfg, p0, rms_norm(x0, p0["ln"]))
+        w, b = p0["conv_w"].to(cdt), p0["conv_b"].to(cdt)
+        tile = cfg.ssm.conv_tile
+        k_out = conv1d.causal_conv1d_launch(xbc, w, b, tile)
+        p_out = conv1d.causal_conv1d_plain(xbc, w, b)
+        torch.cuda.synchronize()
+        exact = bits_equal(k_out, p_out)
+        err = max_err(k_out, p_out)
+        assert exact, err
+        conv_ms = time_ms(lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile),
+                          reps=20, warmup=3)
+        conv_dev = device_ms(
+            lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile), reps=10,
+            kernel="conv1d_silu")
+        g = torch.randn(xbc.shape, generator=torch.Generator(
+            device=dev).manual_seed(9), device=dev).to(cdt)
+        vjp_ms = time_ms(lambda: conv1d.causal_conv1d_vjp(xbc, w, b, g),
+                         reps=10, warmup=2)
+        vjp_prof = profile_breakdown(
+            torch, lambda: conv1d.causal_conv1d_vjp(xbc, w, b, g), cpu=False)
+        # Back-to-back calls between two CUDA events, over their count:
+        # the device's time a call once the host runs ahead (no profiler).
+        conv_stream = stream_ms(
+            torch, lambda: conv1d.causal_conv1d_launch(xbc, w, b, tile), 50)
+        vjp_stream = stream_ms(
+            torch, lambda: conv1d.causal_conv1d_vjp(xbc, w, b, g), 10)
+        n_el = xbc.numel()
+        conv_bytes = (2 * n_el + w.numel() + b.numel()) * 2
+        # The VJP reads x and g and writes dx (dw, db: 5 × C, not counted).
+        vjp_bytes = 3 * n_el * 2
+        conv_shape = list(xbc.shape)
+        del x0, xbc, k_out, p_out, g
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    # Two layers at full width: one step on the card against the same
+    # step on the CPU (plain versions), from the same weights and state.
+    cfg2 = dataclasses.replace(cfg, n_layers=2, loss_chunk=128)
+    m_cpu, m_gpu = get_model(cfg2, device="cpu"), get_model(cfg2, device=dev)
+    p_cpu = m_cpu.init(1)
+    p_gpu = ssm.SSMModel(cfg2, device=dev)
+    p_gpu.load_state_dict(p_cpu.state_dict())
+    small = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=256,
+                                     global_batch=1, seed=3))
+    ocfg2 = OptConfig(lr=1e-3, warmup_steps=1)
+    before = {k: v.detach().clone() for k, v in p_cpu.named_parameters()}
+    res = {}
+    for where, m2, prm in (("cpu", m_cpu, p_cpu), ("card", m_gpu, p_gpu)):
+        o2 = adamw_init(dict(prm.named_parameters()))
+        _, _, met = train_step(m2, prm, o2, small.batch_at(0), ocfg2)
+        res[where] = {"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"])}
+    # Bands: the loss within two bf16 ulps, the gradient norm within four
+    # (bf16 compute, two accumulation orders: cuBLAS and the CPU's GEMM);
+    # Adam's first update is ±lr an element whatever the gradient's size,
+    # so an element whose tiny gradient flips sign moves by 2·lr: the
+    # parameters within 2·lr (+1%), and the updates' signs agreeing on at
+    # least 98% of the elements.
+    upd_agree, upd_n, p_err = 0, 0, 0.0
+    named_gpu = dict(p_gpu.named_parameters())
+    for k, pc in p_cpu.named_parameters():
+        pg = named_gpu[k].detach().cpu()
+        p_err = max(p_err, max_err(pg, pc.detach()))
+        du_c = torch.sign(pc.detach() - before[k])
+        du_g = torch.sign(pg - before[k])
+        upd_agree += int((du_c == du_g).sum())
+        upd_n += du_c.numel()
+    agree = upd_agree / upd_n
+    cpu_ok = (abs(res["card"]["loss"] - res["cpu"]["loss"])
+              <= 2.0 ** -7 * abs(res["cpu"]["loss"])
+              and abs(res["card"]["grad_norm"] - res["cpu"]["grad_norm"])
+              <= 2.0 ** -6 * res["cpu"]["grad_norm"]
+              and p_err <= 2.02 * ocfg2.lr and agree >= 0.98)
+    assert cpu_ok, (res, p_err, agree)
+    del m_cpu, p_cpu, p_gpu, before
+
+    # Save (async) after step 1, restore into fresh objects, step again:
+    # bit-equal to the uninterrupted run.
+    pa = m_gpu.init(2)
+    oa = adamw_init(dict(pa.named_parameters()))
+    pa, oa, _ = train_step(m_gpu, pa, oa, small.batch_at(1), ocfg2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as d:
+        ck = Checkpointer(CheckpointConfig(d))
+        t0 = time.perf_counter()
+        save_state(ck, 1, pa, oa, blocking=False)
+        save_host_s = time.perf_counter() - t0
+        pa, oa, met_a = train_step(m_gpu, pa, oa, small.batch_at(2), ocfg2)
+        ck.wait()
+        pb = m_gpu.init(7)
+        ob, at = restore_state(ck, m_gpu, pb)
+        assert at == 1 and int(ob["count"]) == 1
+        pb, ob, met_b = train_step(m_gpu, pb, ob, small.batch_at(2), ocfg2)
+    named_b = dict(pb.named_parameters())
+    differ = sorted(
+        [f"params.{k}" for k, v in pa.named_parameters()
+         if not bits_equal(v.detach(), named_b[k].detach())]
+        + [f"{mv}.{k}" for mv in ("m", "v") for k in oa[mv]
+           if not bits_equal(oa[mv][k], ob[mv][k])])
+    resume_exact = (not differ
+                    and bits_equal(met_a["loss"], met_b["loss"])
+                    and int(oa["count"]) == int(ob["count"]) == 2)
+    assert resume_exact, differ[:10]
+    del pa, oa, pb, ob, m_gpu
+    torch.cuda.empty_cache()
+
+    conv_tb = conv_bytes / HBM_BYTES_PER_S * 1e3
+    conv_tf = (2 * 4 + 1 + 4) * n_el / F32_FLOPS_PER_S * 1e3
+    phase = {
+        "phase": "mamba2_train", "arch": cfg.name, "layers": cfg.n_layers,
+        "d_model": cfg.d_model, "params": n_params, "batch": batch,
+        "seq": seq, "tokens_per_step": tokens, "conv_tile": tile,
+        "init_s": init_s, "launches": launched,
+        "conv_launches_per_step": per_step,
+        "cold_step_ms": step_s[0] * 1e3, "step_ms": step_ms,
+        "timed_step_ms": timed_ms,
+        "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops_per_step": model_flops,
+        "model_flops_share_of_bf16_peak": (
+            model_flops / (step_ms / 1e3) / BF16_FLOPS_PER_S),
+        "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": gnorms,
+        "repeated_batch_losses": repeated, "profile_step": prof,
+        "conv_shape": conv_shape, "exact_vs_plain": exact,
+        "max_abs_err": err, "ms": conv_ms, "device_ms": conv_dev,
+        "stream_ms": conv_stream, "vjp_stream_ms": vjp_stream,
+        "bound_ms": max(conv_tb, conv_tf),
+        "bound_by": "bytes" if conv_tb >= conv_tf else "operations",
+        "plain_ms": None, "library_ms": None,
+        "vjp_ms": vjp_ms, "vjp_device_ms": vjp_prof.get("device_busy_ms"),
+        "vjp_launches": vjp_prof.get("kernel_launches"),
+        "vjp_bound_ms": vjp_bytes / HBM_BYTES_PER_S * 1e3,
+        "card_vs_cpu_2layer": res, "card_vs_cpu_param_max_abs_err": p_err,
+        "card_vs_cpu_update_sign_agreement": agree,
+        "save_host_s": save_host_s, "resume_bit_equal": resume_exact,
         "card": card_line,
     }
     emit(phase)

@@ -8,9 +8,15 @@ holds grids as arrays.  :func:`from_reference` reads both into the port's
 into the exact values the kernels multiply with.
 
 A model's weights are the reference's parameter tree:
-:func:`params_from_reference` loads it into the port's module, and
-:func:`cache_from_reference` carries a serving cache across, so a JAX
-prefill can be continued by the port's decode.
+:func:`params_from_reference` loads it into the port's module and
+:func:`params_to_reference` gives it back; :func:`cache_from_reference`
+carries a serving cache across, so a JAX prefill can be continued by the
+port's decode.  A training state crosses with
+:func:`opt_state_from_reference` / :func:`opt_state_to_reference`: the
+reference holds the moments as trees like its parameters (``layers``
+stacked (L, ...)), the port as ``{name: tensor}`` over the module's
+parameter names (``layers.<i>.<leaf>``).  The reference's trees cross as
+numpy arrays; bf16 values as float32 arrays (numpy has no bfloat16).
 """
 
 from __future__ import annotations
@@ -25,7 +31,10 @@ from . import ir, resolve_device
 __all__ = [
     "cache_from_reference",
     "from_reference",
+    "opt_state_from_reference",
+    "opt_state_to_reference",
     "params_from_reference",
+    "params_to_reference",
     "stencil_from_reference",
 ]
 
@@ -102,3 +111,86 @@ def cache_from_reference(cache_np, cfg, device=None):
             raise ValueError(f"cache {name}: {a.shape} is not {spec.shape}")
         out[name] = torch.from_numpy(a).to(dev, spec.dtype)
     return out
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.cpu().numpy()
+
+
+def _unstack(tree_np, device) -> dict:
+    """``{port name: f32 tensor}`` from a tree shaped as the reference's
+    parameters: ``embed.<leaf>`` as is, each ``layers.<leaf>`` (L, ...)
+    split into ``layers.<i>.<leaf>``."""
+    from .models.layers import flatten_tree
+
+    out = {}
+    for path, a in flatten_tree(tree_np):
+        t = torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+        group, leaf = path.split(".", 1)
+        if group == "layers":
+            for i, v in enumerate(t):
+                out[f"layers.{i}.{leaf}"] = v.clone()
+        else:
+            out[path] = t
+    return out
+
+
+def _stack(named) -> dict:
+    """The reference's tree (numpy, ``layers`` stacked (L, ...)) from
+    ``{port name: tensor}``; the inverse of :func:`_unstack`."""
+    tree: dict = {}
+    layers: dict = {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            layers.setdefault(parts[2], []).append((int(parts[1]), t))
+        else:
+            tree.setdefault(parts[0], {})[parts[1]] = _to_numpy(t)
+    if layers:
+        tree["layers"] = {
+            leaf: np.stack([_to_numpy(t) for _, t in sorted(vs)])
+            for leaf, vs in layers.items()
+        }
+    return tree
+
+
+def params_to_reference(model) -> dict:
+    """The reference's parameter tree (numpy) from the port's
+    :class:`~repro_torch.models.ssm.SSMModel`: the inverse of
+    :func:`params_from_reference`."""
+    return _stack(dict(model.named_parameters()))
+
+
+def opt_state_from_reference(opt_np, cfg, device=None) -> dict:
+    """The port's AdamW state (``m``, ``v``: ``{name: f32 tensor}``,
+    ``count``: int32 0-dim) from the reference's (``m`` and ``v`` trees
+    shaped as its parameters, ``count``), given as numpy arrays."""
+    from .models.ssm import SSMModel
+
+    dev = resolve_device(device)
+    names = [n for n, _ in SSMModel(cfg, device="meta").named_parameters()]
+    out = {}
+    for k in ("m", "v"):
+        got = _unstack(opt_np[k], dev)
+        if set(got) != set(names):
+            raise KeyError(
+                f"opt state {k}: missing {sorted(set(names) - set(got))}, "
+                f"unexpected {sorted(set(got) - set(names))}"
+            )
+        out[k] = {n: got[n] for n in names}
+    out["count"] = torch.tensor(int(np.asarray(opt_np["count"])),
+                                dtype=torch.int32, device=dev)
+    return out
+
+
+def opt_state_to_reference(opt_state) -> dict:
+    """The reference's AdamW state (numpy) from the port's: the inverse of
+    :func:`opt_state_from_reference`."""
+    return {
+        "m": _stack(opt_state["m"]),
+        "v": _stack(opt_state["v"]),
+        "count": np.asarray(_to_numpy(opt_state["count"]), dtype=np.int32),
+    }

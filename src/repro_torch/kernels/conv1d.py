@@ -26,7 +26,10 @@ or raises; on a CPU tensor it runs :func:`causal_conv1d_plain`, the plain
 PyTorch version beside it (``_prepend_halo`` + the unrolled f32 loop +
 silu), which the tests use.  :func:`causal_conv1d` is the entry point with
 the reference's signature and its custom VJP as a ``torch.autograd.Function``
-whose backward is plain torch math, as the reference's is plain jnp.
+whose backward, :func:`causal_conv1d_vjp`, is plain torch math, as the
+reference's is plain jnp.  Training runs each layer under activation
+checkpointing, so a step launches the kernel twice a layer: the forward
+and its recompute before the backward.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ __all__ = [
     "causal_conv1d",
     "causal_conv1d_launch",
     "causal_conv1d_plain",
+    "causal_conv1d_vjp",
 ]
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -216,10 +220,40 @@ def causal_conv1d_launch(x, conv_w, conv_b, tile_s, state=None):
     return out
 
 
+def causal_conv1d_vjp(x, conv_w, conv_b, g):
+    """The reference's backward of the conv (``conv1d.py:151-178``), plain
+    torch as the reference's is plain jnp: recompute the pre-activation in
+    f32, apply silu', then the transposed (anti-causal) correlation.
+    Returns ``(dx, dw, db)`` in the dtypes of ``x``, ``conv_w``,
+    ``conv_b``."""
+    b, s, c = x.shape
+    width = conv_w.shape[0]
+    halo = width - 1
+    wf = conv_w.float()
+    full = torch.cat(
+        [torch.zeros((b, halo, c), dtype=x.dtype, device=x.device), x], 1
+    )
+    pre = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for i in range(width):
+        pre = pre + full[:, i:i + s, :].float() * wf[i]
+    pre = pre + conv_b.float()
+    sig = torch.sigmoid(pre)
+    gpre = g.float() * sig * (1.0 + pre * (1.0 - sig))
+    gp = torch.cat([gpre, gpre.new_zeros((b, halo, c))], 1)
+    dx = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
+    for i in range(width):
+        dx = dx + gp[:, halo - i:halo - i + s, :] * wf[i]
+    dw = torch.stack([
+        torch.einsum("btc,btc->c", gpre, full[:, i:i + s, :].float())
+        for i in range(width)
+    ])
+    db = gpre.sum(dim=(0, 1))
+    return dx.to(x.dtype), dw.to(conv_w.dtype), db.to(conv_b.dtype)
+
+
 class _ConvGrad(torch.autograd.Function):
     """The reference's custom VJP (``conv1d.py:141-181``): the forward is
-    the kernel, the backward recomputes the pre-activation in f32, applies
-    silu', then the transposed (anti-causal) correlation."""
+    the kernel, the backward :func:`causal_conv1d_vjp`."""
 
     @staticmethod
     def forward(ctx, x, conv_w, conv_b, tile_s):
@@ -228,30 +262,7 @@ class _ConvGrad(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, conv_w, conv_b = ctx.saved_tensors
-        b, s, c = x.shape
-        width = conv_w.shape[0]
-        halo = width - 1
-        wf = conv_w.float()
-        full = torch.cat(
-            [torch.zeros((b, halo, c), dtype=x.dtype, device=x.device), x], 1
-        )
-        pre = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
-        for i in range(width):
-            pre = pre + full[:, i:i + s, :].float() * wf[i]
-        pre = pre + conv_b.float()
-        sig = torch.sigmoid(pre)
-        gpre = g.float() * sig * (1.0 + pre * (1.0 - sig))
-        gp = torch.cat([gpre, gpre.new_zeros((b, halo, c))], 1)
-        dx = torch.zeros((b, s, c), dtype=torch.float32, device=x.device)
-        for i in range(width):
-            dx = dx + gp[:, halo - i:halo - i + s, :] * wf[i]
-        dw = torch.stack([
-            torch.einsum("btc,btc->c", gpre, full[:, i:i + s, :].float())
-            for i in range(width)
-        ])
-        db = gpre.sum(dim=(0, 1))
-        return dx.to(x.dtype), dw.to(conv_w.dtype), db.to(conv_b.dtype), None
+        return (*causal_conv1d_vjp(*ctx.saved_tensors, g), None)
 
 
 @functools.lru_cache(maxsize=512)

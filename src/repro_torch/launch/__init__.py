@@ -1,1 +1,2 @@
-"""Launch entry points of the port: the serving loop and the column mesh."""
+"""Launch entry points of the port: the serving loop, the trainer and the
+column mesh."""

@@ -2,6 +2,7 @@
 
     specs   = model.param_specs()                 # ParamSpec tree
     params  = model.init(seed)                    # the family's nn.Module
+    loss    = model.loss(params, batch)           # scalar, differentiable
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, cache, token, pos)
 
@@ -9,9 +10,10 @@ plus ``cache_specs`` / ``init_cache``.  ``params`` is the family's module
 (:class:`~repro_torch.models.ssm.SSMModel`) where the reference passes a
 dict tree.  The model runs on ``device``: ``None`` means the card, and
 ``"cpu"`` runs the kernels' plain versions (the tests); without CUDA and
-without ``device="cpu"``, ``init``, ``init_cache``, ``prefill`` and
-``decode_step`` raise.  Prefill and decode run under
-``torch.inference_mode()`` and update the cache in place.
+without ``device="cpu"``, ``init``, ``init_cache``, ``loss``, ``prefill``
+and ``decode_step`` raise.  Parameters are trainable: ``loss`` runs under
+autograd; prefill and decode run under ``torch.inference_mode()`` and
+update the cache in place.
 
 Only the SSM family is ported; the others raise ``NotImplementedError``
 naming their ``ROADMAP.md`` item.
@@ -61,7 +63,13 @@ class Model:
         return model.load_flat(iter_init(self.param_specs(), gen))
 
     def loss(self, params, batch):
-        return ssm.ssm_loss(self.cfg, params, batch)
+        """The training loss of ``batch`` (``tokens``, ``targets``,
+        ``mask``: tensors or numpy arrays, moved to the model's device)."""
+        dev = self._dev()
+        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+        for k in ("tokens", "targets"):
+            b[k] = b[k].long()
+        return ssm.ssm_loss(self.cfg, params, b)
 
     def prefill(self, params, batch, cache):
         dev = self._dev()

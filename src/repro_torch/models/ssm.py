@@ -1,4 +1,4 @@
-"""Mamba2 (SSD, state-space duality): the serving path of the SSM family.
+"""Mamba2 (SSD, state-space duality): the SSM family, served and trained.
 
 A port of the JAX package's ``models/ssm.py`` for the attention-free
 family.  SSD runs the chunked algorithm of the Mamba2 paper: the sequence
@@ -16,9 +16,15 @@ the layers' leaves on a leading axis; here each layer holds its own.
 Serving runs under ``torch.inference_mode()``.  The decode cache is
 updated in place: :func:`ssm_forward` writes each layer's new SSM and
 conv state into the cache it was given, where the reference returns a new
-cache.  The Zamba2 hybrid (``attn_every > 0``) and training
-(``ssm_loss``) raise ``NotImplementedError`` naming their ``ROADMAP.md``
-items.
+cache.  Training (:func:`ssm_loss`) differentiates the same forward; with
+``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (the port
+checkpoints per layer: the reference's ``remat_groups`` two-level scan
+changes memory, not results).  The intra-chunk decay of SSD masks its
+exponent before ``exp``: the reference's ``where(tri, exp(diff), 0)``
+overflows above the diagonal at 128-token chunks, and its gradient is
+then NaN (``ROADMAP.md`` queue C); the forward is the same.  The Zamba2
+hybrid (``attn_every > 0``) raises ``NotImplementedError`` naming its
+``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -28,10 +34,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.conv1d import causal_conv1d
 from ..parallel.sharding import ParamSpec
 from .layers import (
+    chunked_xent,
     embed_param_specs,
     embed_tokens,
     flatten_tree,
@@ -58,7 +66,6 @@ __all__ = [
 ]
 
 _HYBRID = "ROADMAP.md queue A, item 7b (the Zamba2 hybrid)"
-_TRAINING = "ROADMAP.md queue A, item 7a (training for the SSM family)"
 
 
 def _no_hybrid(cfg) -> None:
@@ -156,7 +163,10 @@ def _ssd_chunked(x, dt, A, B_, C_, chunk):
         y_off = torch.einsum("bin,bhpn,bih->bihp", Cc, hprev, torch.exp(dA_cs))
         # intra-chunk dual form
         diff = dA_cs[:, :, None, :] - dA_cs[:, None, :, :]  # (B,Qi,Qj,H)
-        lmat = torch.where(tri, torch.exp(diff), 0.0)
+        # Masked before exp: above the diagonal diff is positive and
+        # overflows at Q = 128, and where(tri, exp(diff), 0)'s gradient is
+        # then 0 · inf = NaN.  exp(-inf) = 0, so the values are the same.
+        lmat = torch.exp(diff.masked_fill(~tri, float("-inf")))
         scores = torch.einsum("bin,bjn->bij", Cc, Bc)
         w = scores[..., None] * lmat * dtc[:, None, :, :]  # (B,Qi,Qj,H)
         y = torch.einsum("bijh,bjhp->bihp", w, xc)
@@ -222,15 +232,14 @@ def mamba_block(cfg, p, x, ssm_state=None, conv_state=None):
 # ---------------------------------------------------------------------------
 
 class _Leaves(nn.Module):
-    """A module whose parameters are one spec dict's leaves, made empty.
-    Serving only: no gradients (training, item 7a, turns them on)."""
+    """A module whose parameters are one spec dict's leaves, made empty
+    and trainable (serving runs under ``inference_mode``)."""
 
     def __init__(self, specs: dict, device=None):
         super().__init__()
         for name, spec in specs.items():
             self.register_parameter(name, nn.Parameter(
                 torch.empty(spec.shape, dtype=spec.dtype, device=device),
-                requires_grad=False,
             ))
 
     def tensors(self) -> dict[str, torch.Tensor]:
@@ -314,15 +323,26 @@ def ssm_param_specs(cfg) -> dict:
     }
 
 
+def _residual_layer(cfg, blk: MambaBlock, x):
+    """One layer of the training forward: ``x + block(norm(x))``."""
+    p = blk.tensors()
+    return x + mamba_block(cfg, p, rms_norm(x, p["ln"]))[0]
+
+
 def ssm_forward(cfg, params: SSMModel, tokens, pos, cache=None):
-    """cache = None or the dict from :func:`ssm_init_cache`, whose
+    """cache = None (train) or the dict from :func:`ssm_init_cache`, whose
     ``ssm``/``conv`` states are read and then overwritten in place, layer
-    by layer.  ``pos`` is unused by the attention-free family.  The
-    reference's ``_constrain_act`` sharding hint is left out: it constrains
-    nothing on one device."""
+    by layer.  ``pos`` is unused by the attention-free family.  Without a
+    cache, under autograd and with ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint``.  The reference's ``_constrain_act``
+    sharding hint is left out: it constrains nothing on one device."""
     _no_hybrid(cfg)
     emb = params.embed.tensors()
     x = embed_tokens(cfg, emb, tokens)
+    if cache is None and cfg.remat and torch.is_grad_enabled():
+        for blk in params.layers:
+            x = checkpoint(_residual_layer, cfg, blk, x, use_reentrant=False)
+        return rms_norm(x, emb["final_norm"]), None
     for i, blk in enumerate(params.layers):
         ssm_s = cache["ssm"][i] if cache is not None else None
         conv_s = cache["conv"][i] if cache is not None else None
@@ -337,10 +357,13 @@ def ssm_forward(cfg, params: SSMModel, tokens, pos, cache=None):
     return x, cache
 
 
-def ssm_loss(cfg, params, batch):
-    raise NotImplementedError(
-        f"ssm_loss (training) is not in the port yet: {_TRAINING}"
-    )
+def ssm_loss(cfg, params: SSMModel, batch):
+    """The mean next-token cross-entropy of ``batch`` (``tokens``,
+    ``targets`` (B, S) int64 and ``mask`` (B, S) tensors on the
+    parameters' device), through :func:`~.layers.chunked_xent`."""
+    x, _ = ssm_forward(cfg, params, batch["tokens"], 0)
+    return chunked_xent(cfg, params.embed.tensors(), x, batch["targets"],
+                        batch["mask"])
 
 
 def ssm_cache_specs(cfg, batch: int, max_len: int) -> dict:

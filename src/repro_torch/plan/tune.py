@@ -12,7 +12,8 @@ The planner scores candidates by a model of the card (modelled ms,
 3. record the median, IQR, modelled bytes and modelled ms, and the
    model-vs-measured ratio per candidate into the persistent
    :class:`~repro_torch.plan.tunedb.TunedPlanDB` (the PlanCache's sha256
-   request keys, further keyed by :func:`backend_fingerprint`);
+   request keys, further keyed by :func:`backend_fingerprint`, which for
+   a sharded race names which shards share a card, :func:`mesh_layout`);
 4. keep the measured winner.  The analytic choice is always candidate 0
    and always raced, so the ``never_slower`` gate — measured winner time
    ≤ measured analytic time — holds by construction and is asserted at
@@ -63,6 +64,7 @@ __all__ = [
     "default_tuner",
     "format_record",
     "main",
+    "mesh_layout",
     "resolve_tuner",
     "smoke",
 ]
@@ -84,15 +86,35 @@ def _kernels_hash() -> str:
     return _KERNELS_HASH[0]
 
 
-def backend_fingerprint(device=None) -> str:
+def mesh_layout(mesh=None, num_shards: int = 1) -> str | None:
+    """Which shards of a sharded launch share a device: each shard's
+    device numbered by its first appearance, so 4 shards on one card read
+    ``0.0.0.0`` and 4 cards ``0.1.2.3``.  ``mesh=None`` with
+    ``num_shards > 1`` is the mesh the launch then builds, one device a
+    shard; ``None`` for an unsharded launch."""
+    if mesh is None:
+        n = int(num_shards)
+        return ".".join(map(str, range(n))) if n > 1 else None
+    if mesh.size == 1:
+        return None
+    first: dict = {}
+    return ".".join(str(first.setdefault(str(d), len(first)))
+                    for d in mesh.devices)
+
+
+def backend_fingerprint(device=None, layout: str | None = None) -> str:
     """Identity of what a measurement means: the device fingerprint
     (``cuda:<name>:xN:torch-<ver>:cuda-<ver>``, or ``cpu:...`` for the
     plain versions) plus the hash of the kernels' sources — a measurement
     taken before a kernel changed is never served after it, and a CPU
-    record never to the card or the reverse."""
+    record never to the card or the reverse.  A sharded race adds its
+    mesh's :func:`mesh_layout`: shards that share a card launch in a row,
+    so their record is never served to a call spread over cards, or the
+    reverse; an unsharded fingerprint is unchanged."""
     from ..runtime.timing import device_fingerprint
 
-    return f"{device_fingerprint(device)}|kernels={_kernels_hash()}"
+    fp = f"{device_fingerprint(device)}|kernels={_kernels_hash()}"
+    return fp if layout is None else f"{fp}|mesh={layout}"
 
 
 def _spearman(xs, ys) -> float:
@@ -415,7 +437,8 @@ class AutoTuner:
             race_sp.__exit__(None, None, None)
         rec = TuneRecord(
             key=key,
-            fingerprint=backend_fingerprint(self.device),
+            fingerprint=backend_fingerprint(
+                self.device, mesh_layout(mesh, request.num_shards)),
             candidates=tuple(rows),
             winner=winner,
             analytic=0,
@@ -462,7 +485,9 @@ class AutoTuner:
         rec = None
         if not self.force:
             rec = self.db.get(
-                request.cache_key(), backend_fingerprint(self.device)
+                request.cache_key(),
+                backend_fingerprint(self.device,
+                                    mesh_layout(mesh, request.num_shards)),
             )
         self.last_plan_tuned = rec is not None
         if rec is None:

@@ -1,8 +1,30 @@
-"""Runtime support of the port: the measurement harness.
+"""Runtime support of the port: the measurement harness and the
+trainer's fault tolerance (a copy of the JAX package's jax-free
+``runtime/fault_tolerance.py``).
 
-The JAX package's fault-tolerance and ISA-control modules come with
-``ROADMAP.md`` queue A items 12 and 13."""
+The JAX package's ISA-control module comes with ``ROADMAP.md`` queue A
+item 13."""
 
+from .fault_tolerance import (  # noqa: F401
+    Action,
+    ClusterMonitor,
+    ElasticPlan,
+    HeartbeatTracker,
+    HostState,
+    StragglerPolicy,
+    plan_elastic_remesh,
+)
 from .timing import TimingResult, device_fingerprint, measure  # noqa: F401
 
-__all__ = ["TimingResult", "device_fingerprint", "measure"]
+__all__ = [
+    "Action",
+    "ClusterMonitor",
+    "ElasticPlan",
+    "HeartbeatTracker",
+    "HostState",
+    "StragglerPolicy",
+    "TimingResult",
+    "device_fingerprint",
+    "measure",
+    "plan_elastic_remesh",
+]

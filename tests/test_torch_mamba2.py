@@ -157,9 +157,15 @@ def test_unported_architectures_name_their_roadmap_item(arch, item):
                                  family="hybrid", attn_every=2)
     with pytest.raises(NotImplementedError, match="item 7b"):
         t_get_model(hybrid)
+    # Training (item 7a) is ported: the loss is a finite f32 scalar.
     _, tc = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="item 7a"):
-        t_get_model(tc, device="cpu").loss(None, {})
+    model = t_get_model(tc, device="cpu")
+    toks = np.random.default_rng(1).integers(0, tc.vocab, (B, S + 1))
+    loss = model.loss(model.init(0), {
+        "tokens": toks[:, :-1], "targets": toks[:, 1:],
+        "mask": np.ones((B, S), np.float32)})
+    assert loss.dtype == torch.float32 and loss.ndim == 0
+    assert bool(torch.isfinite(loss))
 
 
 # -- parameters -------------------------------------------------------------

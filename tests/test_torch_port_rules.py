@@ -57,7 +57,11 @@ def test_the_scan_sees_the_port():
     for module in ("obs/__init__.py", "obs/recorder.py", "obs/report.py",
                    "obs/trace_event.py", "runtime/__init__.py",
                    "runtime/timing.py", "plan/tune.py", "plan/tunedb.py",
-                   "launch/mesh.py", "parallel/shard_columns.py"):
+                   "launch/mesh.py", "parallel/shard_columns.py",
+                   "launch/train.py", "data/pipeline.py",
+                   "optim/optimizer.py", "optim/compression.py",
+                   "checkpoint/checkpointer.py",
+                   "runtime/fault_tolerance.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 
@@ -71,7 +75,8 @@ def _no_cuda():
     "stencil_pallas", "stencil_iterate", "multi_stencil_pallas",
     "run_program", "from_reference", "causal_conv1d", "model_init",
     "model_init_cache", "model_prefill", "model_decode_step", "serve",
-    "params_from_reference",
+    "params_from_reference", "model_loss", "train_main",
+    "opt_state_from_reference",
 ])
 def test_entry_points_default_to_the_card(entry):
     _no_cuda()
@@ -81,6 +86,7 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.conv1d import causal_conv1d
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import main as train_main
     from repro_torch.models import get_model
 
     x = np.zeros((12, 13, 14), np.float32)
@@ -116,6 +122,12 @@ def test_entry_points_default_to_the_card(entry):
             params, cache, toks[:, :1], 4),
         "serve": lambda: serve(cfg, params, toks, 2),
         "params_from_reference": lambda: convert.params_from_reference(
+            {}, cfg),
+        "model_loss": lambda: get_model(cfg).loss(params, {
+            "tokens": toks, "targets": toks,
+            "mask": np.ones(toks.shape, np.float32)}),
+        "train_main": lambda: train_main(["--smoke", "--steps", "1"]),
+        "opt_state_from_reference": lambda: convert.opt_state_from_reference(
             {}, cfg),
     })
     with pytest.raises(RuntimeError, match="device='cpu'"):

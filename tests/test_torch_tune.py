@@ -520,6 +520,41 @@ def test_sharded_request_tunes_sharded_launch(monkeypatch):
     assert torch.equal(again, base)
 
 
+def test_sharded_fingerprint_keys_on_the_mesh_layout():
+    """A sharded race's record keys on which shards share a card: 4 shards
+    on one card and 4 over 4 cards get different fingerprints, so neither
+    record is served to the other's call; which cards does not matter
+    (cards 4-7 read as 0-3); an unsharded fingerprint is unchanged."""
+    from repro_torch.launch.mesh import ColumnMesh, make_column_mesh
+    from repro_torch.plan.tune import mesh_layout
+
+    cuda = [torch.device("cuda", i) for i in range(8)]
+    co = ColumnMesh((cuda[0],) * 4)
+    spread = ColumnMesh(tuple(cuda[:4]))
+    other = ColumnMesh(tuple(cuda[4:]))
+    pairs = ColumnMesh((cuda[0], cuda[0], cuda[1], cuda[1]))
+    assert mesh_layout(co) == "0.0.0.0"
+    assert mesh_layout(spread) == mesh_layout(other) == "0.1.2.3"
+    assert mesh_layout(pairs) == "0.0.1.1"
+    assert mesh_layout(None, 4) == "0.1.2.3"  # the mesh a launch builds
+    assert mesh_layout(None, 1) is None
+    assert mesh_layout(ColumnMesh((cuda[0],))) is None
+    base = backend_fingerprint("cpu")
+    assert base == (f"{device_fingerprint('cpu')}|kernels="
+                    f"{tune_mod._kernels_hash()}")
+    fps = {backend_fingerprint("cpu", mesh_layout(m))
+           for m in (co, spread, pairs)}
+    assert len(fps) == 3 and base not in fps
+    # A race on two shards sharing the CPU is served to that layout only.
+    tuner = _tuner()
+    rec = tuner.tune(_request(num_shards=2),
+                     mesh=make_column_mesh(2, device="cpu"))
+    assert rec.fingerprint == backend_fingerprint("cpu", "0.0")
+    assert tuner.db.get(rec.key, backend_fingerprint("cpu", "0.0")) == rec
+    assert tuner.db.get(rec.key, backend_fingerprint("cpu", "0.1")) is None
+    assert tuner.db.get(rec.key, base) is None
+
+
 # -- kernel plumbing ----------------------------------------------------------
 
 
