@@ -76,7 +76,21 @@ points at full size:
 * ``unfavorable_sweep`` — the planned 13-point star on n × n × 256 f32
   grids, n = 500..516, at the planned and at a fixed tile, ns per point
   beside whether the paper's §6 criterion flags the grid under the
-  paper's (2, 512, 4) cache and under a stated L1 model;
+  paper's (2, 512, 4) cache and under a stated L1 model; each grid a
+  geometry flags is measured again on ``pad_grid``'s padded grid (ns per
+  point of the caller's grid) as ``layout_sweep`` measures a grid; every
+  launch bit-equal to its plain version on the first pass;
+* ``layout_sweep``      — the paper's §6 for the layout the launch reads:
+  the planned 13-point star on 512 × 512 × m grids, m = 240..272, f32 and
+  bf16, two passes (m rising, then falling); per m the kernel's ``ms``
+  and ``device_ms``, the call's ``call_ms``, ns per useful point, the
+  launch buffer's slack (``core.padding.tpu_layout_waste``, held equal to
+  the buffer ``_launch_inputs`` builds), whether its rows copy as whole
+  16-byte blocks, and ``advise_dim``'s verdict on m; each flagged m also
+  padded as advised and timed; each launch bit-equal to its plain
+  version on the first pass; a verdict per dtype on whether the advice
+  predicts ``ms`` or ``call_ms`` (flagged rows slower than the others by
+  more than the two passes' spread);
 * ``mamba2_serve``      — Mamba2-2.7B at its published width and depth (64
   layers, weights drawn from a seeded generator) with the conv on the
   kernel (``pallas_conv=True, conv_tile=256``), serving batch 4 × 2048
@@ -99,6 +113,13 @@ points at full size:
   and their byte bounds; at 2 layers and full width, one step on the card
   against the CPU within a stated band, and an async save, a restore into
   fresh objects and a step bit-equal to the uninterrupted run;
+* ``zamba2_serve``, ``zamba2_train`` — the Zamba2-2.7B hybrid (54 Mamba2
+  layers at full width, one shared attention + MLP block applied after
+  every 6th, so 9 applications each with its own KV ring) through the
+  same two phases: conv launches 54 a prefill and 108 a training step,
+  the conv at 4 × 2048 × 5248 bf16, the KV rings' size; the card-vs-CPU
+  checks at 6 layers (one shared-block application); 3 steps on the
+  repeated batch;
 * ``planned_conv``      — the prefill conv's shape with ``tile_s=None``:
   the planned tile and the serving phase's 256, both timed.
 
@@ -122,7 +143,7 @@ host builds the launch tables).  Each apply phase and the conv print
 card idle before it), threads, CTAs per SM, waves and the ptxas line; the
 conv prints ``copy_ms`` / ``copy_device_ms``, a device copy of its input
 (the same bytes), as the yardstick of what the card reaches.  It prints
-one JSON line per phase, a
+one JSON line per phase, the seconds each group of phases took, a
 ``kernels`` line, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero; without
 CUDA, or outside a checkout, it exits non-zero before printing a result.
@@ -196,6 +217,7 @@ def main() -> None:
 
     from repro_torch import convert, ir, obs
     from repro_torch.core.cache_fitting import star_stencil
+    from repro_torch.core.padding import pad_grid
     from repro_torch.core.tiling import apply_smem_bytes, sweep_smem_bytes
     from repro_torch.kernels import _build, conv1d, ref, sweep
     from repro_torch.kernels import stencil as st
@@ -419,6 +441,14 @@ def main() -> None:
 
     summary: dict = {}
     gen = torch.Generator(device=dev)
+    laps: dict = {}
+    t_lap = [time.perf_counter()]
+
+    def lap(name) -> None:
+        """Seconds since the previous lap, under ``name``."""
+        now = time.perf_counter()
+        laps[name] = now - t_lap[0]
+        t_lap[0] = now
 
     # -- build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -429,6 +459,7 @@ def main() -> None:
           "ptxas": _build.PTXAS,
           "flags": list(_build.NVCC_FLAGS)})
 
+    lap("build")
     # -- apply_f32_512 -------------------------------------------------------
     gen.manual_seed(0)
     shape = (512, 512, 512)
@@ -1110,6 +1141,7 @@ def main() -> None:
     del u
     torch.cuda.empty_cache()
 
+    lap("hand-tiled stencil phases")
     # -- planned phases: tile=None through the plan compiler ---------------
     # Each drives the public entry point without a tile, so the default
     # planner decides tile, sweep axis, window kind and fusion depth for
@@ -1277,6 +1309,7 @@ def main() -> None:
     del out, hand_out, us
     torch.cuda.empty_cache()
 
+    lap("planned phases")
     # -- tuned phases: tune=True through the measured tune loop ------------
     # Each makes the call of a planned phase with tune=True (the default
     # tuner: k=4, reps=5, warmup=1, records in this run's directory).  The
@@ -1447,6 +1480,7 @@ def main() -> None:
     del us
     torch.cuda.empty_cache()
 
+    lap("tuned phases")
     # -- traced_calls: trace= under torch.profiler -----------------------------
     # apply_f32_512's call and the planned int8 chain, each with trace=.
     # The trace passes validate_trace and reconciles; its kernel_launch
@@ -1546,6 +1580,7 @@ def main() -> None:
           "apply_traced_call_ms": traced_ms,
           "trace_cost_ms": traced_ms - untraced_ms, "card": card_line})
 
+    lap("traced_calls")
     # -- sharded phases: column sharding over a 4-shard mesh on this card ----
     # Each phase runs a call of an earlier phase on an explicit mesh of 4
     # shards that share this card (a mesh never co-locates shards on its
@@ -1870,6 +1905,7 @@ def main() -> None:
     del u
     torch.cuda.empty_cache()
 
+    lap("sharded phases")
     # unfavorable_sweep: the paper's question on this card.  The planned
     # 13-point star on n × n × 256 f32 grids, n = 500..516, timed (the
     # kernel alone, CUDA events) at the planned tile and at the fixed
@@ -1881,6 +1917,9 @@ def main() -> None:
     # read as a dependence on n; each time is the median of 20 launches.
     geoms = {"paper_2_512_4": (2, 512, 4), "l1_4_64_32": (4, 64, 32)}
     rows, swept = {}, {name: 0 for name in kernels}
+    measure = sweep_measurer(torch, dev, reset, counts, time_ms, device_ms,
+                             bits_equal, max_err, swept)
+    err = 0.0
     for pass_, ns in enumerate((range(500, 517), range(516, 499, -1))):
         for n in ns:
             shape = (n, n, 256)
@@ -1904,34 +1943,92 @@ def main() -> None:
                 args = (ins, offs, wts, lo_w, hi_w, tile, sw, True)
                 k_out = sweep.sweep_apply(*args)
                 if pass_ == 0:
-                    exact = bits_equal(k_out, sweep.sweep_apply_plain(*args))
+                    p_out = sweep.sweep_apply_plain(*args)
+                    exact = bits_equal(k_out, p_out)
+                    err = max(err, max_err(k_out, p_out))
+                    if label == "planned":  # the launch the call made
+                        trim = k_out[tuple(slice(0, e) for e in shape)]
+                        exact = exact and bits_equal(out, trim.contiguous())
+                        err = max(err, max_err(out, trim))
                     assert exact, (n, label)
+                    del p_out
                 ms = time_ms(lambda: sweep.sweep_apply(*args), reps=20)
                 row.setdefault(f"{label}_ms", []).append(ms)
                 row.setdefault(f"{label}_ns_per_point", []).append(
                     ms * 1e6 / prod(shape))
                 del ins, k_out, args
-            for gname, (a, z, w) in geoms.items():
-                rep_ = planner.lattice_report(shape[::-1], a * z * w, 5, a=1)
-                row[gname] = {"unfavorable": rep_.unfavorable,
-                              "shortest_l1": rep_.shortest_l1,
-                              "hyperbola_k": rep_.hyperbola_k}
             del u, out
+            for gname, (a, z, w) in geoms.items():
+                if gname not in row:
+                    rep_ = planner.lattice_report(shape[::-1], a * z * w, 5,
+                                                  a=1)
+                    row[gname] = {"unfavorable": rep_.unfavorable,
+                                  "shortest_l1": rep_.shortest_l1,
+                                  "hyperbola_k": rep_.hyperbola_k}
+                    if rep_.unfavorable:
+                        # The grid again, padded as pad_grid advises (its
+                        # leading lattice dims are the grid's two fastest
+                        # axes).
+                        try:
+                            row[gname]["padded"] = {"shape": list(pad_grid(
+                                shape[::-1], a * z * w, 5)[0][::-1])}
+                        except ValueError as e:  # no favourable pad in +16
+                            row[gname]["padded"] = str(e)
+                pad = row[gname].get("padded")
+                if not isinstance(pad, dict):
+                    continue
+                p_ms, _ = measure(tuple(pad["shape"]), torch.float32,
+                                  pass_ == 0, pad, seed=n)
+                # Per point of the caller's grid, so that padding's extra
+                # points count against it.
+                pad.setdefault("ns_per_useful_point", []).append(
+                    p_ms * 1e6 / prod(shape))
             torch.cuda.empty_cache()
-    emit({"phase": "unfavorable_sweep", "grids": "n x n x 256 f32",
-          "passes": 2, "launches": swept,
-          "rows": [rows[n] for n in sorted(rows)], "card": card_line})
+    err = max([err] + [r[g]["padded"]["max_abs_err"] for r in rows.values()
+                       for g in geoms
+                       if isinstance(r[g].get("padded"), dict)])
+    phase = {"phase": "unfavorable_sweep", "grids": "n x n x 256 f32",
+             "passes": 2, "launches": swept, "max_abs_err": err,
+             "rows": [rows[n] for n in sorted(rows)], "card": card_line}
+    emit(phase)
+    summary["sweep_apply"].append(phase)
 
+    lap("unfavorable_sweep")
+    # -- layout_sweep ---------------------------------------------------------
+    summary["sweep_apply"].append(layout_sweep_phase(
+        torch, dev, card_line, emit, reset, counts, time_ms, device_ms,
+        bits_equal, max_err))
+
+    lap("layout_sweep")
     # -- mamba2_serve -------------------------------------------------------
     summary["conv1d"] = [mamba2_phase(
         torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
         max_err, device_ms, host_ms, ptxas_by_function, mangled)]
 
+    lap("mamba2_serve")
     # -- mamba2_train -------------------------------------------------------
     summary["conv1d"].append(mamba2_train_phase(
         torch, dev, card_line, emit, reset, counts, time_ms, bits_equal,
         max_err, device_ms))
 
+    lap("mamba2_train")
+    # -- zamba2_serve, zamba2_train: the hybrid, as the two phases above ------
+    summary["conv1d"].append(mamba2_phase(
+        torch, F, dev, card_line, emit, reset, counts, time_ms, bits_equal,
+        max_err, device_ms, host_ms, ptxas_by_function, mangled,
+        arch="zamba2-2.7b"))
+    lap("zamba2_serve")
+    summary["conv1d"].append(mamba2_train_phase(
+        torch, dev, card_line, emit, reset, counts, time_ms, bits_equal,
+        max_err, device_ms, arch="zamba2-2.7b",
+        # A tenth of Mamba2's rate.  At 3e-4 from the first step the first
+        # update overshoots at this width: the loss rises at the second
+        # step, in the reference as in the port
+        # (tests/test_torch_zamba2.py::
+        # test_repeated_batch_at_full_width_follows_the_reference).
+        repeat_lr=3e-5))
+
+    lap("zamba2_train")
     # planned_conv: the prefill conv's shape with tile_s=None; the planned
     # tile against the serving phase's 256, both timed: the tile only
     # changes the padding.
@@ -1989,6 +2086,7 @@ def main() -> None:
     if failed:
         fail(f"tuned/traced gates failed: {json.dumps(failed, default=str)}")
 
+    lap("planned_conv")
     # -- summary ---------------------------------------------------------------
     rows = []
     every_phase = [ph for phases in summary.values() for ph in phases]
@@ -2014,6 +2112,7 @@ def main() -> None:
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
             "library_ms": head["library_ms"], "phase": head["phase"],
         })
+    emit({"phase": "seconds", "total": sum(laps.values()), **laps})
     emit({"kernels": rows})
     print(card_line)
     emit({"ok": True, "device": {
@@ -2082,10 +2181,159 @@ def profile_breakdown(torch, fn, cpu=True) -> dict:
     }
 
 
+def sweep_measurer(torch, dev, reset, counts, time_ms, device_ms, bits_equal,
+                   max_err, swept, reps=20):
+    """``measure(shape, dtype, first, rec, seed=None)`` for the grid phases:
+    the planned 13-point star (``stencil_pallas`` without a tile) on a grid
+    of ``shape`` drawn from ``seed`` (default: the minor extent), its
+    launches added to ``swept``; the planned launch again through
+    ``sweep_apply``, its kernel ``ms`` (CUDA events, median of ``reps``)
+    and the whole call's ``call_ms`` appended to ``rec`` and returned.
+    With ``first`` also: the launch bit-equal to its plain version and the
+    call's output to the launch's, trimmed (asserted; their largest
+    difference is ``rec["max_abs_err"]``), the plan, the launch buffer's
+    slack (``tpu_layout_waste`` at the planned tile and the star's halo,
+    held equal to the buffer ``_launch_inputs`` builds), whether the
+    launcher copies its rows as whole 16-byte blocks
+    (``sweep.apply_copy16``) and the profiler's ``device_ms``."""
+    import numpy as np
+
+    from repro_torch.core.padding import tpu_layout_waste
+    from repro_torch.kernels import ref, sweep
+    from repro_torch.kernels import stencil as st
+
+    offs13, w13 = ref.star_weights_2nd_order(3, 2)
+    spec13 = (tuple(map(tuple, np.asarray(offs13).tolist())),
+              tuple(float(w) for w in w13))
+    gen = torch.Generator(device=dev)
+
+    def measure(shape, dtype, first, rec, seed=None):
+        nbytes = torch.empty((), dtype=dtype).element_size()
+        gen.manual_seed(shape[-1] if seed is None else seed)
+        u = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        reset()
+        out = st.stencil_pallas(u, offs13, w13)
+        torch.cuda.synchronize()
+        for k, v in counts().items():
+            swept[k] += v
+        plan = st._auto_tile(shape, [spec13[0]], nbytes, 1, dev,
+                             window_kind="auto")
+        ins, offs, wts, _, lo_w, hi_w = st._launch_inputs([u], (spec13,),
+                                                          plan.tile)
+        args = (ins, offs, wts, lo_w, hi_w, plan.tile, plan.sweep_axis, True)
+        if first:
+            k_out = sweep.sweep_apply(*args)
+            p_out = sweep.sweep_apply_plain(*args)
+            trim = k_out[tuple(slice(0, e) for e in shape)]
+            exact = (bits_equal(k_out, p_out)
+                     and bits_equal(out, trim.contiguous()))
+            err = max(max_err(k_out, p_out), max_err(out, trim))
+            assert exact, (shape, dtype, err)
+            waste = tpu_layout_waste(shape, plan.tile, halo=2,
+                                     dtype_bytes=nbytes)
+            assert waste == 1.0 - prod(shape) / ins[0].numel(), waste
+            rec.update(tile=list(plan.tile), sweep_axis=plan.sweep_axis,
+                       modeled_ms=plan.modeled_ms, launch_waste=waste,
+                       rows_16B_blocks=sweep.apply_copy16(*args),
+                       exact_vs_plain=exact, max_abs_err=err,
+                       device_ms=device_ms(
+                           lambda: sweep.sweep_apply(*args), reps=3,
+                           kernel="sweep_apply_kernel"))
+            del k_out, p_out, trim
+        ms = time_ms(lambda: sweep.sweep_apply(*args), reps=reps)
+        call_ms = time_ms(lambda: st.stencil_pallas(u, offs13, w13), reps=10)
+        rec.setdefault("ms", []).append(ms)
+        rec.setdefault("call_ms", []).append(call_ms)
+        del u, out, ins, args
+        torch.cuda.empty_cache()
+        return ms, call_ms
+
+    return measure
+
+
+def layout_sweep_phase(torch, dev, card_line, emit, reset, counts, time_ms,
+                       device_ms, bits_equal, max_err, n=512,
+                       extents=range(240, 273)) -> dict:
+    """The ``layout_sweep`` phase: the paper's §6 on this card, for the
+    layout the launch reads.  The planned 13-point star on n × n × m
+    grids, m over ``extents``, in f32 and bf16, two passes (m rising, then
+    falling), each grid through :func:`sweep_measurer` (kernel ``ms``,
+    ``call_ms``, and on the first pass the bit-equality checks, launch
+    slack, 16-byte row copies and ``device_ms``); per row also ns per
+    useful point and ``advise_dim``'s verdict on m; where the advice flags
+    m, the grid padded as advised (minor extent ``padded``) measured too.
+    Returns the phase record."""
+    from repro_torch.core.padding import advise_dim
+
+    swept = {name: 0 for name in counts()}
+    measure = sweep_measurer(torch, dev, reset, counts, time_ms, device_ms,
+                             bits_equal, max_err, swept)
+    t_start = time.perf_counter()
+    by_dtype, err = {}, 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        nbytes = torch.empty((), dtype=dtype).element_size()
+        rows = {}
+        for pass_, order in enumerate((list(extents), list(extents)[::-1])):
+            for m in order:
+                adv = advise_dim(m, dtype_bytes=nbytes)
+                row = rows.setdefault(m, {"m": m, "advise_dim": adv})
+                shape = (n, n, m)
+                ms, call = measure(shape, dtype, pass_ == 0, row)
+                useful = prod(shape)
+                row.setdefault("ns_per_point", []).append(ms * 1e6 / useful)
+                row.setdefault("call_ns_per_point", []).append(
+                    call * 1e6 / useful)
+                if adv["unfavorable"]:
+                    pad = row.setdefault("padded", {"m": adv["padded"]})
+                    p_ms, p_call = measure((n, n, adv["padded"]), dtype,
+                                           pass_ == 0, pad)
+                    # Per point of the caller's grid: the padding's extra
+                    # points count against it.
+                    pad.setdefault("ns_per_useful_point", []).append(
+                        p_ms * 1e6 / useful)
+                    pad.setdefault("call_ns_per_useful_point", []).append(
+                        p_call * 1e6 / useful)
+        rows = [rows[m] for m in sorted(rows)]
+        err = max([err] + [r["max_abs_err"] for r in rows]
+                  + [r["padded"]["max_abs_err"] for r in rows
+                     if "padded" in r])
+        verdict = {}
+        for key in ("ns_per_point", "call_ns_per_point"):
+            med = {r["m"]: statistics.median(r[key]) for r in rows}
+            # The noise: the median relative gap between the two passes.
+            spread = statistics.median(
+                abs(r[key][0] - r[key][1]) / med[r["m"]] for r in rows)
+            flagged = [med[r["m"]] for r in rows
+                       if r["advise_dim"]["unfavorable"]]
+            clear = [med[r["m"]] for r in rows
+                     if not r["advise_dim"]["unfavorable"]]
+            gap = (statistics.median(flagged) / statistics.median(clear) - 1
+                   if flagged and clear else None)
+            waste = [r["launch_waste"] for r in rows]
+            verdict[key] = {
+                "flagged_over_clear_minus_1": gap, "pass_spread": spread,
+                "advice_predicts": gap is not None and gap > spread,
+                "corr_with_launch_waste": (
+                    statistics.correlation(waste, list(med.values()))
+                    if len(set(waste)) > 1 else None),
+            }
+        by_dtype[str(dtype).removeprefix("torch.")] = {
+            "rows": rows, "verdict": verdict}
+    phase = {"phase": "layout_sweep", "grids": f"{n} x {n} x m",
+             "extents": [min(extents), max(extents)], "passes": 2,
+             "launches": swept, "max_abs_err": err,
+             "seconds": time.perf_counter() - t_start, **by_dtype,
+             "card": card_line}
+    emit(phase)
+    return phase
+
+
 def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
                  bits_equal, max_err, device_ms, host_ms, ptxas_by_function,
-                 mangled) -> dict:
-    """The ``mamba2_serve`` phase; returns the conv kernel's record."""
+                 mangled, arch="mamba2-2.7b") -> dict:
+    """The ``mamba2_serve`` phase (``zamba2_serve`` for ``arch=
+    "zamba2-2.7b"``: the hybrid, whose shared attention block keeps a KV
+    ring per application); returns the conv kernel's record."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -2096,11 +2344,17 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
     from repro_torch.models.layers import embed_tokens, rms_norm, unembed
 
     batch, prompt, gen = 4, 2048, 16
-    cfg = get_config("mamba2-2.7b")
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, pallas_conv=True, conv_tile=256))
     cdt = cfg.compute_dtype
     model = get_model(cfg, device=dev)
+    # The KV rings of the hybrid's shared block (keys and values, bf16).
+    kv_gb = sum(prod(sp.shape) * torch.empty((), dtype=sp.dtype)
+                .element_size() for name, sp in model.cache_specs(
+                    batch, prompt + gen).get("attn", {}).items()
+                if name in ("k", "v")) / 1e9
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(0)
@@ -2224,9 +2478,11 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
     del params
     torch.cuda.empty_cache()
 
-    # A 2-layer full-width model, batch 1 × 256 tokens, on the card and on
+    # A 2-layer full-width model (the hybrid: attn_every layers, one
+    # shared-block application), batch 1 × 256 tokens, on the card and on
     # the CPU (plain versions), same weights: prefill + 2 decode steps.
-    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    n2 = cfg.attn_every or 2
+    cfg2 = dataclasses.replace(cfg, n_layers=n2)
     p_cpu = get_model(cfg2, device="cpu").init(1)
     p_gpu = ssm.SSMModel(cfg2, device=dev)
     p_gpu.load_state_dict(p_cpu.state_dict())
@@ -2252,7 +2508,10 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
     torch.cuda.empty_cache()
 
     phase = {
-        "phase": "mamba2_serve", "arch": cfg.name, "layers": cfg.n_layers,
+        "phase": f"{arch.split('-')[0]}_serve", "arch": cfg.name,
+        "layers": cfg.n_layers,
+        "shared_block_applications": cfg.n_layers // cfg.attn_every
+        if cfg.attn_every else 0, "kv_cache_gb": kv_gb,
         "d_model": cfg.d_model, "params": n_params, "batch": batch,
         "prompt_tokens": prompt, "generated_tokens": gen,
         "conv_tile": tile, "conv_shape": [batch, prompt, n_el // (batch * prompt)],
@@ -2272,7 +2531,7 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
         "bound_ms": max(tb, tf), "bound_by": "bytes" if tb >= tf else
         "operations", "bytes": nbytes, "flops": flops,
         "teacher_forcing_max_abs_err": tf_err,
-        "card_vs_cpu_2layer_max_abs_err": cpu_err,
+        f"card_vs_cpu_{n2}layer_max_abs_err": cpu_err,
         "card": card_line,
     }
     emit(phase)
@@ -2295,8 +2554,10 @@ def stream_ms(torch, fn, n) -> float:
 
 
 def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
-                       bits_equal, max_err, device_ms) -> dict:
-    """The ``mamba2_train`` phase; returns its record (a conv record)."""
+                       bits_equal, max_err, device_ms, arch="mamba2-2.7b",
+                       repeat_lr=3e-4) -> dict:
+    """The ``mamba2_train`` phase (``zamba2_train`` for ``arch=
+    "zamba2-2.7b"``); returns its record (a conv record)."""
     import dataclasses
 
     import numpy as np
@@ -2311,7 +2572,7 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
     from repro_torch.optim import OptConfig, adamw_init
 
     batch, seq = 2, LM_SHAPES["train_4k"].seq_len  # global batch 256 -> 2
-    cfg = get_config("mamba2-2.7b")
+    cfg = get_config(arch)
     cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
         cfg.ssm, pallas_conv=True, conv_tile=256))
     cdt = cfg.compute_dtype
@@ -2359,11 +2620,12 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
     # Where a step's time goes (after the timed steps: its cost is in no
     # time above); device activity only.
     prof = profile_breakdown(torch, lambda: step(4), cpu=False)
-    # The loss on a repeated batch over 5 steps (lr 3e-4 from the first).
+    # The loss on a repeated batch over 5 steps (lr repeat_lr from the
+    # first).
     repeat = data.batch_at(0)
-    fast = OptConfig(lr=3e-4, warmup_steps=1)
+    fast = OptConfig(lr=repeat_lr, warmup_steps=1)
     repeated = [float(step(0, fast, repeat)["loss"]) for _ in range(5)]
-    assert repeated[-1] < repeated[0], repeated
+    falls = repeated[-1] < repeated[0]  # asserted after the record prints
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     # The conv kernel on layer 0's training input (no state), against its
@@ -2407,9 +2669,11 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
     del params, opt_state
     torch.cuda.empty_cache()
 
-    # Two layers at full width: one step on the card against the same
+    # Two layers at full width (the hybrid: attn_every layers, one
+    # shared-block application): one step on the card against the same
     # step on the CPU (plain versions), from the same weights and state.
-    cfg2 = dataclasses.replace(cfg, n_layers=2, loss_chunk=128)
+    n2 = cfg.attn_every or 2
+    cfg2 = dataclasses.replace(cfg, n_layers=n2, loss_chunk=128)
     m_cpu, m_gpu = get_model(cfg2, device="cpu"), get_model(cfg2, device=dev)
     p_cpu = m_cpu.init(1)
     p_gpu = ssm.SSMModel(cfg2, device=dev)
@@ -2480,7 +2744,8 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
     conv_tb = conv_bytes / HBM_BYTES_PER_S * 1e3
     conv_tf = (2 * 4 + 1 + 4) * n_el / F32_FLOPS_PER_S * 1e3
     phase = {
-        "phase": "mamba2_train", "arch": cfg.name, "layers": cfg.n_layers,
+        "phase": f"{arch.split('-')[0]}_train", "arch": cfg.name,
+        "layers": cfg.n_layers,
         "d_model": cfg.d_model, "params": n_params, "batch": batch,
         "seq": seq, "tokens_per_step": tokens, "conv_tile": tile,
         "init_s": init_s, "launches": launched,
@@ -2502,12 +2767,14 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
         "vjp_ms": vjp_ms, "vjp_device_ms": vjp_prof.get("device_busy_ms"),
         "vjp_launches": vjp_prof.get("kernel_launches"),
         "vjp_bound_ms": vjp_bytes / HBM_BYTES_PER_S * 1e3,
-        "card_vs_cpu_2layer": res, "card_vs_cpu_param_max_abs_err": p_err,
+        f"card_vs_cpu_{n2}layer": res, "card_vs_cpu_param_max_abs_err": p_err,
         "card_vs_cpu_update_sign_agreement": agree,
         "save_host_s": save_host_s, "resume_bit_equal": resume_exact,
+        "repeated_batch_loss_falls": falls, "repeat_lr": repeat_lr,
         "card": card_line,
     }
     emit(phase)
+    assert falls, repeated
     return phase
 
 

@@ -1,9 +1,9 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 / ``list_archs()``, with the JAX package's names.
 
-Only the architectures whose family the port runs have a module here; the
-others raise ``NotImplementedError`` naming the ``ROADMAP.md`` item that
-brings them.
+The SSM family (``mamba2_2p7b``) and the Zamba2 hybrid (``zamba2_2p7b``)
+have a module here; the transformer families raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
 """
 
 from __future__ import annotations
@@ -24,13 +24,10 @@ ARCHS = [
     "arctic_480b",
     "mamba2_2p7b",
 ]
-PORTED = ("mamba2_2p7b",)
+PORTED = ("mamba2_2p7b", "zamba2_2p7b")
 # The queue-A item of ROADMAP.md that brings each architecture not ported.
-_LATER = {
-    "zamba2_2p7b": "item 7b (the Zamba2 hybrid)",
-    **{a: "item 7c (the transformer families)" for a in ARCHS
-       if a not in PORTED and a != "zamba2_2p7b"},
-}
+_LATER = {a: "item 7c (the transformer families)" for a in ARCHS
+          if a not in PORTED}
 
 
 def _norm(name: str) -> str:

@@ -5,9 +5,13 @@ architecture is a ``ModelCfg`` in its own module with the published
 dims, plus a ``smoke()`` reduced config of the same family for CPU
 tests.  ``vocab_padded`` is the vocabulary rounded up to a multiple of
 128, the embedding table's and the logits' width (``core.padding``).
+``padding_report`` scores the model's dims with the card's layout advice
+(``core.padding.advise_dim``: one 128-byte line of the compute dtype);
+``padded_heads`` and ``stored_kv_heads`` are the reference's head
+padding for tensor parallelism, the identity at ``tp = 1``.
 
-Only the SSM family runs in the port so far; the fields of the other
-families (MoE, attention, encoder-decoder) are kept as data.
+The SSM family and the Zamba2 hybrid run in the port so far; the fields
+of the other families (MoE, encoder-decoder) are kept as data.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Optional
 
 import torch
 
-from ..core.padding import tpu_pad_dim
+from ..core.padding import advise_dim, tpu_pad_dim
 
 __all__ = ["MoECfg", "SSMCfg", "ModelCfg", "ShapeCfg", "LM_SHAPES"]
 
@@ -89,6 +93,50 @@ class ModelCfg:
     def vocab_padded(self) -> int:
         unit = math.lcm(128, max(self.tp, 1))
         return tpu_pad_dim(self.vocab, unit)
+
+    @property
+    def padding_report(self) -> dict:
+        """:func:`~repro_torch.core.padding.advise_dim` on the reference's
+        four dims, in lines of the compute dtype (64 bf16 elements).  A
+        dim the model lacks (Mamba2's ``d_ff = 0``) is left out, where the
+        reference's report divides by zero."""
+        nbytes = torch.empty((), dtype=self.compute_dtype).element_size()
+        return {
+            name: advise_dim(getattr(self, name), dtype_bytes=nbytes)
+            for name in ("vocab", "d_ff", "d_model", "head_dim")
+            if getattr(self, name) > 0
+        }
+
+    # ---- head padding for TP (the reference's; identity at tp = 1) --------
+    @property
+    def padded_heads(self) -> int:
+        """Q heads padded so the head axis divides tp.
+
+        MHA (q==kv): tail-pad to a multiple of tp.  GQA with q%tp!=0: pad
+        *each kv group* g→g' so kv·g' % tp == 0, which keeps the q-head →
+        kv-head map a consecutive repeat."""
+        hq, hkv, tp = self.n_heads, self.n_kv_heads, self.tp
+        if tp <= 1 or hq % tp == 0:
+            return hq
+        if hq == hkv:
+            return -(-hq // tp) * tp
+        g = hq // hkv
+        gp = g
+        while (hkv * gp) % tp:
+            gp += 1
+        return hkv * gp
+
+    @property
+    def stored_kv_heads(self) -> int:
+        """KV heads as stored in compute/cache so the head dim shards."""
+        hkv, tp = self.n_kv_heads, self.tp
+        if tp <= 1 or hkv % tp == 0:
+            return hkv
+        if self.n_heads == self.n_kv_heads:
+            return self.padded_heads  # padded-MHA: kv tail-padded with q
+        if tp % hkv == 0:
+            return tp  # replicate each kv head tp/hkv times
+        raise ValueError(f"{self.name}: kv={hkv} vs tp={tp} unsupported")
 
     @property
     def d_inner(self) -> int:

@@ -82,8 +82,10 @@ def params_from_reference(params_np, cfg, device=None):
     """The port's :class:`~repro_torch.models.ssm.SSMModel` holding the
     reference's parameters.  ``params_np`` is the reference's tree as
     numpy arrays (``{"embed": {...}, "layers": {...}}``, the ``layers``
-    leaves stacked (L, ...)); each leaf is cast to its spec's dtype (bf16
-    leaves arrive as float32 arrays, and f32 → bf16 is exact for them)."""
+    leaves stacked (L, ...), and for the hybrid ``"shared_attn": {"ln1",
+    "ln2", "attn": {...}, "ffn": {...}}``); each leaf is cast to its
+    spec's dtype (bf16 leaves arrive as float32 arrays, and f32 → bf16 is
+    exact for them)."""
     from .models.layers import flatten_tree
     from .models.ssm import SSMModel
 
@@ -97,20 +99,36 @@ def params_from_reference(params_np, cfg, device=None):
 
 def cache_from_reference(cache_np, cfg, device=None):
     """The port's serving cache (``ssm``: (L, B, H, P, N) f32, ``conv``:
-    (L, B, W-1, C) in the compute dtype) from the reference's, given as
-    numpy arrays (a bf16 ``conv`` cache arrives as float32)."""
+    (L, B, W-1, C) in the compute dtype; for the hybrid ``attn``: ``k``,
+    ``v`` (A, B, T, Hs, D), ``positions`` (A, T) and ``pos`` (A,) int32)
+    from the reference's, given as numpy arrays (bf16 leaves arrive as
+    float32; integer leaves as integers)."""
+    from .models.layers import flatten_tree
     from .models.ssm import ssm_cache_specs
 
     dev = resolve_device(device)
     batch = int(np.shape(cache_np["ssm"])[1])
-    specs = ssm_cache_specs(cfg, batch, 0)
-    out = {}
-    for name, spec in specs.items():
-        a = np.array(cache_np[name], dtype=np.float32)
+    max_len = (int(np.shape(cache_np["attn"]["k"])[2])
+               if "attn" in cache_np else 0)
+    got = dict(flatten_tree(cache_np))
+    out: dict = {}
+    for path, spec in flatten_tree(ssm_cache_specs(cfg, batch, max_len)):
+        a = np.asarray(got[path])
         if tuple(a.shape) != spec.shape:
-            raise ValueError(f"cache {name}: {a.shape} is not {spec.shape}")
-        out[name] = torch.from_numpy(a).to(dev, spec.dtype)
+            raise ValueError(f"cache {path}: {a.shape} is not {spec.shape}")
+        host = np.float32 if spec.dtype.is_floating_point else np.int64
+        _set_path(out, path,
+                  torch.from_numpy(np.array(a, dtype=host)).to(dev, spec.dtype))
     return out
+
+
+def _set_path(tree: dict, path: str, value) -> None:
+    """``tree[a][b][c] = value`` for the dotted ``path`` "a.b.c", making
+    the inner dicts as needed."""
+    *parents, leaf = path.split(".")
+    for k in parents:
+        tree = tree.setdefault(k, {})
+    tree[leaf] = value
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -148,7 +166,7 @@ def _stack(named) -> dict:
         if parts[0] == "layers":
             layers.setdefault(parts[2], []).append((int(parts[1]), t))
         else:
-            tree.setdefault(parts[0], {})[parts[1]] = _to_numpy(t)
+            _set_path(tree, name, _to_numpy(t))
     if layers:
         tree["layers"] = {
             leaf: np.stack([_to_numpy(t) for _, t in sorted(vs)])

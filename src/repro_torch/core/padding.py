@@ -14,8 +14,26 @@ favorable padding exists.
 A copy of the paper half of the JAX package's ``core/padding``, plus
 ``tpu_pad_dim``, which ``ModelCfg.vocab_padded`` rounds the vocabulary
 with (the port pads to the reference's multiple of 128, so the embedding
-table and the logits have the reference's shape).  The TPU layout-lattice
-helpers (``tpu_layout_waste``, ``advise_dim``) are not ported.
+table and the logits have the reference's shape).
+
+The layout half keeps the reference's names, ``tpu_layout_waste`` and
+``advise_dim``, and scores the card's grains by default.  Given the
+reference's explicit arguments (``tile=(8, 128)``, ``unit=128``) they
+return the reference's values.  The grains, and where each comes from:
+
+* the launch buffer: ``kernels/stencil.py::_launch_inputs`` rounds every
+  dim of a grid up to the launch tile and adds the window halo on both
+  sides (``lo + round_up(n, t) + hi``).  The kernels read that buffer,
+  never the caller's array, so its slack is what a launch wastes;
+* the 128-byte line (``core/tiling.py::LINE_BYTES``, 32 f32 or 64 bf16
+  elements): a warp's row read moves whole L2 lines, and the planner
+  takes minor tile extents in whole lines (``minor_unit``), so a minor
+  extent that is not a whole number of lines pays the rest of the line;
+* the 16-byte ``cp.async`` block of ``csrc/sweep_common.cuh``: the apply
+  kernel copies window rows as whole blocks only where the buffer's
+  pitches and the window's rows (tile plus halo) are whole blocks.  A
+  minor extent rounded to a line does not make them so: ``lo + hi``
+  decides (4 f32 elements are a block, 4 bf16 elements are not).
 """
 
 from __future__ import annotations
@@ -25,6 +43,7 @@ from math import prod
 from typing import Sequence
 
 from .lattice import InterferenceLattice
+from .tiling import minor_unit
 
 __all__ = [
     "shortest_len",
@@ -32,6 +51,8 @@ __all__ = [
     "hyperbola_index",
     "pad_grid",
     "tpu_pad_dim",
+    "tpu_layout_waste",
+    "advise_dim",
 ]
 
 
@@ -130,6 +151,68 @@ def pad_grid(
     return cand, info_for(cand, ln)
 
 
+# ---------------------------------------------------------------------------
+# Layout lattice of the card (the reference's TPU (8, 128) tiling, rebuilt).
+# ---------------------------------------------------------------------------
+
 def tpu_pad_dim(n: int, unit: int) -> int:
     """Round ``n`` up to a multiple of ``unit``."""
     return -(-n // unit) * unit
+
+
+def tpu_layout_waste(
+    shape: Sequence[int],
+    tile: Sequence[int] | None = None,
+    halo: int | Sequence[tuple[int, int]] = 0,
+    dtype_bytes: int = 4,
+) -> float:
+    """Fraction of a launch buffer that is padding: ``1 - prod(shape) /
+    buffer elements``; 0.0 means nothing is wasted.
+
+    The buffer is the one ``kernels/stencil.py::_launch_inputs`` builds:
+    per dim, ``lo + round_up(n, t) + hi``.  ``tile`` gives ``t`` for the
+    trailing ``len(tile)`` dims (leading dims are not rounded; a shape of
+    fewer dims gets leading 1s).  ``None`` is one 128-byte line on the
+    minor dim (``minor_unit(dtype_bytes)`` elements) and 1 elsewhere: the
+    planner's minor grain.  ``halo`` is the window radius on every dim or
+    one ``(lo, hi)`` pair per dim of ``shape``.  With the reference's
+    ``tile=(8, 128)`` and no halo this is the reference's TPU figure."""
+    shape = tuple(int(n) for n in shape)
+    if tile is None:
+        tile = (minor_unit(dtype_bytes),)
+    tile = tuple(int(t) for t in tile)
+    if len(shape) < len(tile):
+        shape = (1,) * (len(tile) - len(shape)) + shape
+    d = len(shape)
+    if isinstance(halo, int):
+        halo = [(halo, halo)] * d
+    if len(halo) != d:
+        raise ValueError(f"{len(halo)} halo pairs for a {d}-D shape")
+    tiles = (1,) * (d - len(tile)) + tile
+    alloc = prod(int(lo) + tpu_pad_dim(n, t) + int(hi)
+                 for n, t, (lo, hi) in zip(shape, tiles, halo))
+    return 1.0 - prod(shape) / alloc
+
+
+def advise_dim(
+    n: int,
+    unit: int | None = None,
+    max_waste: float = 0.05,
+    dtype_bytes: int = 4,
+) -> dict:
+    """Padding advice for one extent (a grid's minor dim, a model's vocab,
+    d_ff, head_dim ...): the extent rounded up to ``unit`` elements, the
+    fraction of the rounded extent that is padding, and whether that
+    fraction exceeds ``max_waste`` ('unfavorable').  ``unit=None`` is one
+    128-byte line of ``dtype_bytes`` elements (``minor_unit``): 32 f32, 64
+    bf16.  The reference's keys; with its ``unit=128``, its values."""
+    if unit is None:
+        unit = minor_unit(dtype_bytes)
+    padded = tpu_pad_dim(n, unit)
+    waste = 1.0 - n / padded
+    return {
+        "dim": n,
+        "padded": padded,
+        "waste_if_padded_layout": waste,
+        "unfavorable": waste > max_waste,
+    }

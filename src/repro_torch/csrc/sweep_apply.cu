@@ -306,6 +306,22 @@ KernelFn pick(int dtype, int sweep, int smem_bytes, cudaError_t* err) {
   return fn;
 }
 
+// Whether every window row of a launch copies as whole 16-byte blocks
+// (copy16): every row starts aligned in global and shared memory and is a
+// whole number of blocks.  geom and ins as sweep_apply_launch takes them.
+bool rows_copy16(const long long* geom, const void* const* ins) {
+  const int sweep = static_cast<int>(geom[15]);
+  const int c0 = sweep == 0 ? 1 : 0, c1 = sweep == 2 ? 1 : 2;
+  const long long esize = geom[22] == 1 ? 2 : 4;
+  const auto aligned = [](long long bytes) { return bytes % 16 == 0; };
+  bool copy16 = geom[c1] == 1 && aligned(geom[sweep] * esize) &&
+                aligned(geom[c0] * esize) && aligned(geom[6 + c1] * esize) &&
+                aligned(geom[12 + c1] * esize);
+  for (long long a = 0; a < geom[20]; ++a)
+    copy16 = copy16 && aligned(reinterpret_cast<long long>(ins[a]));
+  return copy16;
+}
+
 }  // namespace
 
 // geom (int64, 3-D after the wrapper's leading-axis padding):
@@ -360,19 +376,8 @@ extern "C" int sweep_apply_launch(const long long* geom,
   P.ring_bytes = align16(static_cast<long long>(P.rows) * plane_bytes + 16);
   const long long need = static_cast<long long>(P.ring_bytes) * P.p;
   if (need != smem_bytes || need > kSmemLimit) return -1;
-  // Every window row copies as whole 16-byte blocks when every row starts
-  // aligned in global and shared memory and is a whole number of blocks.
-  const auto aligned = [](long long bytes) { return bytes % 16 == 0; };
-  bool copy16 = P.in_stride[c1] == 1 &&
-                aligned(P.in_stride[sweep] * esize) &&
-                aligned(P.in_stride[c0] * esize) &&
-                aligned(static_cast<long long>(P.tile[c1]) * esize) &&
-                aligned(static_cast<long long>(w1) * esize);
-  for (int a = 0; a < P.p; ++a) {
-    P.in[a] = ins[a];
-    copy16 = copy16 && aligned(reinterpret_cast<long long>(ins[a]));
-  }
-  P.copy16 = copy16;
+  for (int a = 0; a < P.p; ++a) P.in[a] = ins[a];
+  P.copy16 = rows_copy16(geom, ins);
   // Lanes a row: the power of two (4 to 32) at or above the units of a
   // row with one piece at each end (more pieces take a second turn).
   P.group = 4;
@@ -415,6 +420,13 @@ extern "C" int sweep_apply_launch(const long long* geom,
                          static_cast<cudaStream_t>(stream));
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+// 1 where sweep_apply_launch, handed the same geom and ins, copies every
+// window row as whole 16-byte blocks (copy16), else 0.  Launches nothing.
+extern "C" int sweep_apply_copy16(const long long* geom,
+                                  const void* const* ins) {
+  return rows_copy16(geom, ins) ? 1 : 0;
 }
 
 // CTAs of the (dtype, sweep axis) instantiation resident on one SM at

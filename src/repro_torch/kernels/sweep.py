@@ -40,6 +40,7 @@ from . import _build
 
 __all__ = [
     "APPLY_THREADS",
+    "apply_copy16",
     "apply_occupancy",
     "CHAIN_THREADS",
     "chain_occupancy",
@@ -183,6 +184,7 @@ _ARGTYPES = {
     ],
     "sweep_chain_occupancy": [ctypes.c_int, ctypes.c_int],
     "sweep_apply_occupancy": [ctypes.c_int] * 3,
+    "sweep_apply_copy16": [_P(ctypes.c_longlong), _P(ctypes.c_void_p)],
 }
 
 
@@ -334,6 +336,22 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
 
 
 sweep_apply.launches = 0
+
+
+def apply_copy16(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+                 pipelined=True) -> bool:
+    """Whether :func:`sweep_apply` with these arguments copies every window
+    row as whole 16-byte blocks (the kernel's ``copy16`` path), as the
+    launcher decides it for these buffers.  Needs the card; launches
+    nothing."""
+    ins = list(ins)
+    _check(ins, lo_w, hi_w, tile)
+    args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
+    if ins[0].device.type != "cuda":
+        raise RuntimeError("apply_copy16: the launcher runs on the card only")
+    plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
+    return bool(_entry("sweep_apply", "copy16")(
+        plan["geom"], _c(ctypes.c_void_p, [x.data_ptr() for x in ins])))
 
 
 def apply_occupancy(dtype, sweep_axis, smem_bytes) -> int:

@@ -4,10 +4,13 @@
         --batch 4 --prompt-len 2048 --gen 16 --conv-tile 256
 
 runs on the card; ``--smoke --device cpu`` runs the reduced config on the
-CPU through the kernels' plain versions.  ``--conv-tile N`` routes the
-causal conv of every prefill through the conv kernel with N tokens per
-block (``SSMCfg(pallas_conv=True, conv_tile=N)``); without it the conv is
-the unrolled loop, as in the reference's default config.
+CPU through the kernels' plain versions.  ``--arch zamba2-2.7b`` serves
+the Zamba2 hybrid through the same code (its shared attention block
+keeps a KV ring of ``prompt-len + gen`` slots per application).
+``--conv-tile N`` routes the causal conv of every prefill through the
+conv kernel with N tokens per block (``SSMCfg(pallas_conv=True,
+conv_tile=N)``); without it the conv is the unrolled loop, as in the
+reference's default config.
 """
 
 from __future__ import annotations

@@ -7,13 +7,15 @@ runs on the card; ``--smoke --device cpu`` trains the reduced config on
 the CPU through the kernels' plain versions.  The JAX package's loop: the
 token pipeline, AdamW, checkpoint/restart (auto-resume from LATEST, async
 writes in the reference's format), and the heartbeat monitor.  One
-process drives one device; the reference's mesh, its ``shard_map``
-compression path and ``--arch`` families other than the SSM family come
-with ``ROADMAP.md`` queue A items 12, 7b and 7c (an unported arch raises
-``NotImplementedError`` naming its item).  The default ``--arch`` is
-``mamba2-2.7b``, the one ported family (the reference defaults to
-``granite-3-2b``).  ``--conv-tile N`` routes the causal conv through the
-conv kernel with N tokens per block, as ``launch/serve.py``'s flag does.
+process drives one device.  ``--arch`` takes the SSM family and the
+Zamba2 hybrid (``mamba2-2.7b``, ``zamba2-2.7b``), through the same code;
+the reference's mesh, its ``shard_map`` compression path and the
+transformer families come with ``ROADMAP.md`` queue A items 12 and 7c
+(an unported arch raises ``NotImplementedError`` naming its item).  The
+default ``--arch`` stays ``mamba2-2.7b`` until then (the reference
+defaults to ``granite-3-2b``).  ``--conv-tile N`` routes the causal conv
+through the conv kernel with N tokens per block, as
+``launch/serve.py``'s flag does.
 
 :func:`train_step` is the step: the loss under autograd, ``backward()``,
 then :func:`~repro_torch.optim.adamw_update` in place.

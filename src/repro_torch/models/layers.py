@@ -1,12 +1,19 @@
-"""Model building blocks the SSM family serves and trains with: norms,
+"""Model building blocks the SSM family and the Zamba2 hybrid serve and
+train with: norms, rope, attention with its ring KV cache, the gated MLP,
 the token embedding and unembedding, the chunked cross-entropy, and
 parameter init from spec trees.
 
-The part of the JAX package's ``models/layers.py`` that Mamba2 reaches,
-with the same names and numerics: norms in f32, stored in the input's
-dtype; the embedding and the logits in the compute dtype; the loss in
-f32.  Attention, MLP and MoE come with the families that use them
-(``ROADMAP.md`` queue A, items 7b-7c).
+The part of the JAX package's ``models/layers.py`` that Mamba2 and Zamba2
+reach, with the same names and numerics: norms in f32, stored in the
+input's dtype; rope's angles in f32; attention scores and the PV product
+summed in f32 from compute-dtype inputs, masked with the finite
+:data:`NEG_INF`, the probabilities rounded to the compute dtype before
+the PV product; the embedding and the logits in the compute dtype; the
+loss in f32.  Attention is plain torch (einsums as the reference writes
+them), not a fused attention call: those neither keep the finite mask nor
+round the probabilities where the reference does.  Cross-attention and
+MoE come with the families that use them (``ROADMAP.md`` queue A, item
+7c).
 
 Every block is a function of ``(cfg, p, x, ...)`` with ``p`` a mapping
 from the reference's leaf names to tensors.
@@ -14,21 +21,39 @@ from the reference's leaf names to tensors.
 
 from __future__ import annotations
 
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.sharding import ParamSpec
 
+f32 = torch.float32
+
+# The attention mask's fill: finite, so a row with every key masked is a
+# uniform row after the softmax (the reference's), where -inf gives NaN.
 NEG_INF = -1e30
+# Position of an unwritten KV-cache slot: the causal mask (pq >= pk)
+# rejects it for every query.
+INVALID_POS = 2**30
 
 __all__ = [
+    "INVALID_POS",
     "NEG_INF",
+    "attention_block",
+    "attention_param_specs",
+    "chunked_attention",
     "chunked_xent",
+    "expand_kv",
+    "mlp_block",
+    "mlp_param_specs",
+    "pad_heads",
+    "pad_q_heads",
+    "rope",
     "silu",
     "rms_norm",
     "gated_rms_norm",
+    "to_stored_kv",
     "embed_param_specs",
     "embed_tokens",
     "unembed",
@@ -53,6 +78,266 @@ def gated_rms_norm(x, z, w, eps: float = 1e-6):
     """Mamba2's RMSNormGated: norm(x * silu(z))."""
     return rms_norm(x * silu(z.float()).to(x.dtype), w, eps)
 
+
+def rope(x: torch.Tensor, pos: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (B, S, H, D), pos: (B, S) or (S,).  Rotates pairs (x_i,
+    x_{i+D/2}); the frequencies, angles, sin and cos in f32."""
+    d = x.shape[-1]
+    half = d // 2
+    freqs = theta ** (-torch.arange(half, dtype=f32, device=x.device) / half)
+    if pos.ndim == 1:
+        pos = pos[None, :]
+    ang = pos.to(f32)[:, :, None] * freqs  # (B,S,half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Head padding for tensor parallelism (the identity at tp = 1).
+# ---------------------------------------------------------------------------
+
+def pad_heads(t: torch.Tensor, target: int) -> torch.Tensor:
+    """(B, S, H, D) -> (B, S, target, D) zero-padded (tail)."""
+    h = t.shape[2]
+    if h == target:
+        return t
+    return torch.nn.functional.pad(t, (0, 0, 0, target - h))
+
+
+def pad_q_heads(t: torch.Tensor, cfg, axis: int = 2) -> torch.Tensor:
+    """Pad the q-head axis to ``cfg.padded_heads``.
+
+    MHA: tail pad.  GQA: pad *within each kv group* so the q→kv map stays
+    a consecutive repeat (see ``ModelCfg.padded_heads``)."""
+    hq, hp, hkv = cfg.n_heads, cfg.padded_heads, cfg.n_kv_heads
+    if hp == hq:
+        return t
+    axis = axis % t.ndim
+    if hq == hkv:
+        pads = [0, 0] * t.ndim
+        pads[2 * (t.ndim - 1 - axis) + 1] = hp - hq
+        return torch.nn.functional.pad(t, pads)
+    g, gp = hq // hkv, hp // hkv
+    shape = list(t.shape)
+    grouped = t.reshape(*shape[:axis], hkv, g, *shape[axis + 1:])
+    pads = [0, 0] * grouped.ndim
+    pads[2 * (grouped.ndim - 1 - (axis + 1)) + 1] = gp - g
+    padded = torch.nn.functional.pad(grouped, pads)
+    return padded.reshape(*shape[:axis], hp, *shape[axis + 1:])
+
+
+def to_stored_kv(t: torch.Tensor, cfg) -> torch.Tensor:
+    """True kv heads -> stored (shardable) kv heads: consecutive repeat or
+    zero pad, per ``ModelCfg.stored_kv_heads``."""
+    hkv, hs = t.shape[2], cfg.stored_kv_heads
+    if hs == hkv:
+        return t
+    if cfg.n_heads == cfg.n_kv_heads:
+        return pad_heads(t, hs)  # padded-MHA: zero tail, aligned with q pad
+    return torch.repeat_interleave(t, hs // hkv, dim=2)  # GQA replication
+
+
+def expand_kv(t: torch.Tensor, hq: int) -> torch.Tensor:
+    """Stored kv heads -> one kv head per q head (consecutive repeat).
+    Attention itself never materializes it (the grouped einsum of
+    :func:`_attn_chunk`); kept as the reference semantics."""
+    hs = t.shape[2]
+    if hs == hq:
+        return t
+    return torch.repeat_interleave(t, hq // hs, dim=2)
+
+
+# ---------------------------------------------------------------------------
+# Attention.
+# ---------------------------------------------------------------------------
+
+def _attn_chunk(q, k, v, pos_q, pos_k, causal, window, dtype):
+    """q: (B,C,Hq,D); k,v: (B,T,Hs,D) with Hs | Hq (GQA groups); pos_q:
+    (B,C); pos_k: (B,T).  The grouped einsum never materializes the kv
+    heads at Hq width.  Scores and the PV product are summed in f32 from
+    the inputs' values (the reference's ``preferred_element_type=f32``),
+    the mask fills with :data:`NEG_INF`, and the probabilities are rounded
+    to ``dtype`` before the PV product."""
+    b, c, hq, d = q.shape
+    hs = k.shape[2]
+    g = hq // hs
+    scale = d ** -0.5
+    qg = q.reshape(b, c, hs, g, d)
+    scores = torch.einsum("bchgd,bthd->bhgct", qg.float(), k.float()) * scale
+    pq = pos_q[:, None, None, :, None]  # (B,1,1,C,1)
+    pk = pos_k[:, None, None, None, :]  # (B,1,1,1,T)
+    mask = (pq >= pk) if causal else (pk >= 0)  # pk < 0: unwritten slots
+    if window is not None:
+        mask = mask & (pq - pk < window)
+    scores = scores.masked_fill(~mask, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bhgct,bthd->bchgd", probs.to(dtype).float(),
+                       v.float()).to(dtype)
+    return out.reshape(b, c, hq, d)
+
+
+def chunked_attention(
+    q, k, v, pos_q, pos_k, *, causal: bool, window: Optional[int],
+    q_chunk: int, dtype,
+):
+    """Query-chunked attention (memory: O(q_chunk · T) scores).  Under
+    autograd each query chunk runs under ``torch.utils.checkpoint`` (the
+    reference scans the chunks under ``jax.checkpoint``)."""
+    b, s, h, d = q.shape
+    if pos_q.ndim == 1:
+        pos_q = pos_q[None].expand(b, s)
+    if pos_k.ndim == 1:
+        pos_k = pos_k[None].expand(b, k.shape[1])
+    if s <= q_chunk or s % q_chunk != 0:
+        return _attn_chunk(q, k, v, pos_q, pos_k, causal, window, dtype)
+    grad = torch.is_grad_enabled()
+    outs = []
+    for i in range(0, s, q_chunk):
+        args = (q[:, i:i + q_chunk], k, v, pos_q[:, i:i + q_chunk], pos_k,
+                causal, window, dtype)
+        outs.append(checkpoint(_attn_chunk, *args, use_reentrant=False)
+                    if grad else _attn_chunk(*args))
+    return torch.cat(outs, dim=1)
+
+
+def attention_param_specs(cfg, d_in: int | None = None) -> dict[str, ParamSpec]:
+    d = d_in or cfg.d_model
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    kv_tensor = "tensor" if (cfg.n_kv_heads % max(cfg.tp, 1) == 0) else ""
+    pd = cfg.param_dtype
+    specs = {
+        "wq": ParamSpec((d, hq, hd), pd, ("fsdp", "tensor", "")),
+        "wk": ParamSpec((d, hkv, hd), pd, ("fsdp", kv_tensor, "")),
+        "wv": ParamSpec((d, hkv, hd), pd, ("fsdp", kv_tensor, "")),
+        "wo": ParamSpec((hq, hd, d), pd, ("tensor", "", "fsdp")),
+    }
+    if cfg.qkv_bias:
+        specs |= {
+            "bq": ParamSpec((hq, hd), pd, ("tensor", "")),
+            "bk": ParamSpec((hkv, hd), pd, (kv_tensor, "")),
+            "bv": ParamSpec((hkv, hd), pd, (kv_tensor, "")),
+        }
+    return specs
+
+
+def _ring_write(cache: dict, k_st, v_st) -> torch.Tensor:
+    """Write ``s`` new keys, values and positions into the ring cache at
+    slot ``pos % Tc``, in place, and advance ``pos``; returns the slots'
+    positions.  The reference writes with ``lax.dynamic_update_slice``,
+    which clamps its start so that the update fits (``min(pos % Tc, Tc -
+    s)``): a prefill longer than the ring's free tail lands ending at the
+    last slot, not wrapped.  The clamp is reproduced; the start stays on
+    the device (no host sync)."""
+    tc, s = cache["k"].shape[1], k_st.shape[1]
+    if s > tc:
+        raise ValueError(f"{s} new positions for a cache of {tc} slots")
+    pos = cache["pos"]
+    ar = torch.arange(s, device=pos.device)
+    idx = torch.clamp(pos % tc, max=tc - s).long() + ar
+    cache["k"].index_copy_(1, idx, k_st.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, idx, v_st.to(cache["v"].dtype))
+    cache["positions"].index_copy_(0, idx, (pos + ar).to(pos.dtype))
+    pos.add_(s)
+    return cache["positions"]
+
+
+def attention_block(
+    cfg,
+    p: Mapping[str, torch.Tensor],
+    x: torch.Tensor,
+    pos,
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    use_rope: bool = True,
+    cache: Optional[dict] = None,
+    x_kv: Optional[torch.Tensor] = None,
+    cross: bool = False,
+):
+    """Self-attention sublayer.  Returns ``(out, cache)``.
+
+    ``pos`` is the first token's position (an int or 0-dim tensor) or the
+    tokens' positions (B, S).  KV cache protocol (ring buffer):
+      cache = {'k': (B,Tc,Hs,D), 'v': ..., 'positions': (Tc,) int32,
+               'pos': 0-dim int32}
+    updated in place, where the reference returns a new cache.  Unwritten
+    slots carry :data:`INVALID_POS` in 'positions' so the causal mask
+    rejects them; the write slot is ``pos % Tc`` (clamped as the
+    reference's ``dynamic_update_slice``).  Cross-attention (``cross=True``
+    or ``x_kv``) comes with the encoder-decoder: ``ROADMAP.md`` queue A,
+    item 7c."""
+    if cross or x_kv is not None:
+        raise NotImplementedError(
+            "cross-attention is not in the port yet: ROADMAP.md queue A, "
+            "item 7c (the transformer families)"
+        )
+    cdt = cfg.compute_dtype
+    s = x.shape[1]
+    pos = torch.as_tensor(pos, device=x.device)
+    pos_q = pos if pos.ndim else pos + torch.arange(s, device=x.device)
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
+    if "bq" in p:
+        q = q + p["bq"].to(cdt)
+    if use_rope:
+        q = rope(q, pos_q, cfg.rope_theta)
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
+    if "bk" in p:
+        k = k + p["bk"].to(cdt)
+        v = v + p["bv"].to(cdt)
+    if use_rope:
+        k = rope(k, pos_q, cfg.rope_theta)
+    k_st, v_st = to_stored_kv(k, cfg), to_stored_kv(v, cfg)
+    if cache is not None:
+        pos_k = _ring_write(cache, k_st, v_st)
+        k_st, v_st = cache["k"], cache["v"]
+    else:
+        pos_k = pos_q
+    q = pad_q_heads(q, cfg)
+    out = chunked_attention(
+        q, k_st, v_st, pos_q, pos_k, causal=causal, window=window,
+        q_chunk=cfg.q_chunk, dtype=cdt,
+    )
+    wo = pad_q_heads(p["wo"].to(cdt), cfg, axis=0)
+    y = torch.einsum("bshk,hkd->bsd", out, wo)
+    return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU / GELU).
+# ---------------------------------------------------------------------------
+
+def mlp_param_specs(cfg, d: int | None = None, d_ff: int | None = None,
+                    gated: bool = True) -> dict[str, ParamSpec]:
+    d = d or cfg.d_model
+    ff = d_ff or cfg.d_ff
+    pd = cfg.param_dtype
+    specs = {
+        "w_up": ParamSpec((d, ff), pd, ("fsdp", "tensor")),
+        "w_down": ParamSpec((ff, d), pd, ("tensor", "fsdp")),
+    }
+    if gated:
+        specs["w_gate"] = ParamSpec((d, ff), pd, ("fsdp", "tensor"))
+    return specs
+
+
+def mlp_block(cfg, p, x, act=silu):
+    cdt = cfg.compute_dtype
+    up = torch.matmul(x, p["w_up"].to(cdt))
+    if "w_gate" in p:
+        gate = torch.matmul(x, p["w_gate"].to(cdt))
+        h = act(gate) * up
+    else:
+        h = act(up)
+    return torch.matmul(h, p["w_down"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# Embedding, unembedding, loss.
+# ---------------------------------------------------------------------------
 
 def embed_param_specs(cfg) -> dict[str, ParamSpec]:
     pd = cfg.param_dtype

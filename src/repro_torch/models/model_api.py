@@ -15,8 +15,9 @@ and ``decode_step`` raise.  Parameters are trainable: ``loss`` runs under
 autograd; prefill and decode run under ``torch.inference_mode()`` and
 update the cache in place.
 
-Only the SSM family is ported; the others raise ``NotImplementedError``
-naming their ``ROADMAP.md`` item.
+The SSM family and the Zamba2 hybrid (``ssm`` and ``hybrid``) run
+through :mod:`~repro_torch.models.ssm`; the transformer families raise
+``NotImplementedError`` naming their ``ROADMAP.md`` item.
 """
 
 from __future__ import annotations
@@ -34,11 +35,8 @@ from .layers import flatten_tree, iter_init
 
 __all__ = ["Model", "get_model", "count_params"]
 
-_LATER = {
-    "hybrid": "item 7b (the Zamba2 hybrid)",
-    **{f: "item 7c (the transformer families)"
-       for f in ("dense", "moe", "vlm", "hybrid-attn", "encdec")},
-}
+_LATER = {f: "item 7c (the transformer families)"
+          for f in ("dense", "moe", "vlm", "hybrid-attn", "encdec")}
 
 
 @dataclass
@@ -92,18 +90,19 @@ class Model:
 
 def get_model(cfg: ModelCfg, device=None) -> Model:
     fam = cfg.family
-    if fam in _LATER or (fam == "ssm" and cfg.attn_every):
+    if fam in _LATER:
         raise NotImplementedError(
             f"the {fam} family is not in the port yet: ROADMAP.md queue A, "
-            f"{_LATER.get(fam, _LATER['hybrid'])}"
+            f"{_LATER[fam]}"
         )
-    if fam != "ssm":
+    if fam not in ("ssm", "hybrid"):
         raise ValueError(f"unknown family {fam}")
     return Model(cfg, device)
 
 
 def count_params(cfg: ModelCfg, active_only: bool = False) -> int:
-    """Total parameters N (raw dims).  The SSM family has no experts, so
-    ``active_only`` counts the same."""
+    """Total parameters N (raw dims); the hybrid's shared block counts
+    once, however many times it is applied.  Neither family has experts,
+    so ``active_only`` counts the same."""
     specs = get_model(cfg).param_specs()
     return int(sum(prod(s.shape) for _, s in flatten_tree(specs)))

@@ -1,30 +1,42 @@
-"""Mamba2 (SSD, state-space duality): the SSM family, served and trained.
+"""Mamba2 (SSD, state-space duality) and the Zamba2 hybrid: served and
+trained.
 
-A port of the JAX package's ``models/ssm.py`` for the attention-free
-family.  SSD runs the chunked algorithm of the Mamba2 paper: the sequence
-is split into chunks of Q tokens; within a chunk the dual (quadratic)
-form is used, between chunks the recurrent state is carried — here as a
-Python loop over chunks, where the reference scans.  The causal conv goes
-through the hand-written kernel (``kernels.conv1d``) when
-``SSMCfg.pallas_conv`` is set and S > 1, as in the reference.
+A port of the JAX package's ``models/ssm.py``.  SSD runs the chunked
+algorithm of the Mamba2 paper: the sequence is split into chunks of Q
+tokens; within a chunk the dual (quadratic) form is used, between chunks
+the recurrent state is carried — here as a Python loop over chunks, where
+the reference scans.  The causal conv goes through the hand-written
+kernel (``kernels.conv1d``) when ``SSMCfg.pallas_conv`` is set and S > 1,
+as in the reference.
+
+Zamba2 (``attn_every > 0``) is the stack of Mamba2 blocks with one
+*shared* attention + MLP block (:class:`SharedAttn`, held once) applied
+after layers i with ``(i + 1) % attn_every == 0``; each application has
+its own KV cache.  As in the reference, the shared block is applied to
+the hidden state directly (no concat-with-embedding / per-application
+LoRA of the released model).
 
 Parameters live in modules whose names are the reference tree's leaf
-names: :class:`SSMModel` has ``embed`` (``embedding``, ``final_norm``) and
-``layers``, a ``ModuleList`` of :class:`MambaBlock`.  The reference stacks
-the layers' leaves on a leading axis; here each layer holds its own.
+names: :class:`SSMModel` has ``embed`` (``embedding``, ``final_norm``),
+``layers``, a ``ModuleList`` of :class:`MambaBlock`, and for the hybrid
+``shared_attn`` (``ln1``, ``ln2``, ``attn.w{q,k,v,o}``,
+``ffn.w_{up,gate,down}``).  The reference stacks the layers' leaves on a
+leading axis; here each layer holds its own.
 
 Serving runs under ``torch.inference_mode()``.  The decode cache is
 updated in place: :func:`ssm_forward` writes each layer's new SSM and
-conv state into the cache it was given, where the reference returns a new
-cache.  Training (:func:`ssm_loss`) differentiates the same forward; with
-``cfg.remat`` each layer runs under ``torch.utils.checkpoint`` (the port
-checkpoints per layer: the reference's ``remat_groups`` two-level scan
-changes memory, not results).  The intra-chunk decay of SSD masks its
-exponent before ``exp``: the reference's ``where(tri, exp(diff), 0)``
-overflows above the diagonal at 128-token chunks, and its gradient is
-then NaN (``ROADMAP.md`` queue C); the forward is the same.  The Zamba2
-hybrid (``attn_every > 0``) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+conv state, and each attention application's keys, values and positions,
+into the cache it was given, where the reference returns a new cache.
+Training (:func:`ssm_loss`) differentiates the same forward; with
+``cfg.remat`` each layer (with the shared block after it, where one
+follows) runs under ``torch.utils.checkpoint``: the reference's
+``remat_groups`` two-level scan with whole-group remat changes memory,
+not results.  The intra-chunk decay of SSD masks its exponent before
+``exp``: the reference's ``where(tri, exp(diff), 0)`` overflows above the
+diagonal at 128-token chunks, and its gradient is then NaN
+(``ROADMAP.md`` queue C); the forward is the same.  The reference's
+``_constrain_act`` sharding hint is left out: it constrains nothing on
+one device.
 """
 
 from __future__ import annotations
@@ -39,11 +51,16 @@ from torch.utils.checkpoint import checkpoint
 from ..kernels.conv1d import causal_conv1d
 from ..parallel.sharding import ParamSpec
 from .layers import (
+    INVALID_POS,
+    attention_block,
+    attention_param_specs,
     chunked_xent,
     embed_param_specs,
     embed_tokens,
     flatten_tree,
     gated_rms_norm,
+    mlp_block,
+    mlp_param_specs,
     rms_norm,
     silu,
     unembed,
@@ -53,6 +70,7 @@ f32 = torch.float32
 
 __all__ = [
     "MambaBlock",
+    "SharedAttn",
     "SSMModel",
     "mamba_layer_specs",
     "mamba_block",
@@ -64,17 +82,6 @@ __all__ = [
     "ssm_cache_specs",
     "ssm_init_cache",
 ]
-
-_HYBRID = "ROADMAP.md queue A, item 7b (the Zamba2 hybrid)"
-
-
-def _no_hybrid(cfg) -> None:
-    if cfg.attn_every:
-        raise NotImplementedError(
-            f"{cfg.name}: the shared attention block (attn_every="
-            f"{cfg.attn_every}) is not in the port yet: {_HYBRID}"
-        )
-
 
 # ---------------------------------------------------------------------------
 # Mamba2 block.
@@ -258,32 +265,58 @@ class MambaBlock(_Leaves):
         return mamba_block(self.cfg, self.tensors(), x, ssm_state, conv_state)
 
 
-class SSMModel(nn.Module):
-    """The SSM family's parameters: ``embed`` and ``layers``.  Parameters
-    are made empty; :meth:`load_flat` fills them; :func:`ssm_forward` runs
-    the model."""
+class SharedAttn(nn.Module):
+    """The hybrid's shared block: ``ln1``, ``ln2``, ``attn`` (the
+    attention leaves) and ``ffn`` (the gated MLP's); ``forward`` is the
+    reference's ``_shared_attn_apply``."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        _no_hybrid(cfg)
+        self.cfg = cfg
+        for name in ("ln1", "ln2"):
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                (cfg.d_model,), dtype=cfg.param_dtype, device=device)))
+        self.attn = _Leaves(attention_param_specs(cfg), device)
+        self.ffn = _Leaves(mlp_param_specs(cfg), device)
+
+    def forward(self, x, pos, cache=None):
+        """``x + attn(norm(x))``, then ``+ mlp(norm(·))``; returns ``(x,
+        cache)`` with ``cache`` (one application's) updated in place."""
+        cfg = self.cfg
+        h, cache = attention_block(
+            cfg, self.attn.tensors(), rms_norm(x, self.ln1), pos,
+            causal=True, window=cfg.window, cache=cache,
+        )
+        x = x + h
+        x = x + mlp_block(cfg, self.ffn.tensors(), rms_norm(x, self.ln2))
+        return x, cache
+
+
+class SSMModel(nn.Module):
+    """The SSM family's parameters: ``embed``, ``layers`` and, for the
+    hybrid, ``shared_attn``.  Parameters are made empty; :meth:`load_flat`
+    fills them; :func:`ssm_forward` runs the model."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
         self.cfg = cfg
         self.embed = _Leaves(embed_param_specs(cfg), device)
         self.layers = nn.ModuleList(
             [MambaBlock(cfg, device) for _ in range(cfg.n_layers)]
         )
+        if cfg.attn_every:
+            self.shared_attn = SharedAttn(cfg, device)
 
     def load_flat(self, leaves) -> "SSMModel":
         """Fill the parameters from ``(dotted path, tensor)`` pairs of the
-        reference's tree (``embed.<leaf>``, and ``layers.<leaf>`` stacked
-        (L, ...) over the layers), casting to each parameter's dtype.
-        Every leaf must come exactly once."""
+        reference's tree (``embed.<leaf>``, ``shared_attn.<...>``, and
+        ``layers.<leaf>`` stacked (L, ...) over the layers), casting to
+        each parameter's dtype.  Every leaf must come exactly once."""
         seen = set()
         with torch.no_grad():
             for path, value in leaves:
                 group, leaf = path.split(".", 1)
-                if group == "embed":
-                    getattr(self.embed, leaf).copy_(value)
-                elif group == "layers":
+                if group == "layers":
                     if value.shape[0] != len(self.layers):
                         raise ValueError(
                             f"{path}: {value.shape[0]} layers stacked, the "
@@ -291,6 +324,9 @@ class SSMModel(nn.Module):
                         )
                     for blk, v in zip(self.layers, value):
                         getattr(blk, leaf).copy_(v)
+                elif group in ("embed", "shared_attn") and hasattr(self,
+                                                                    group):
+                    self.get_parameter(path).copy_(value)
                 else:
                     raise KeyError(f"unknown parameter group in {path!r}")
                 seen.add(path)
@@ -303,8 +339,12 @@ class SSMModel(nn.Module):
 
 
 # ---------------------------------------------------------------------------
-# Full SSM model.
+# Full SSM / hybrid model.
 # ---------------------------------------------------------------------------
+
+def _n_attn_apps(cfg) -> int:
+    return cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+
 
 def _stack_specs(specs: dict, n: int) -> dict:
     """Add a leading 'layers' axis to every ParamSpec leaf."""
@@ -315,34 +355,53 @@ def _stack_specs(specs: dict, n: int) -> dict:
 
 
 def ssm_param_specs(cfg) -> dict:
-    """The reference's spec tree: ``embed`` and ``layers`` stacked (L, ...)."""
-    _no_hybrid(cfg)
-    return {
+    """The reference's spec tree: ``embed``, ``layers`` stacked (L, ...)
+    and, for the hybrid, ``shared_attn`` (counted once)."""
+    specs = {
         "embed": embed_param_specs(cfg),
         "layers": _stack_specs(mamba_layer_specs(cfg), cfg.n_layers),
     }
+    if cfg.attn_every:
+        specs["shared_attn"] = {
+            "ln1": ParamSpec((cfg.d_model,), cfg.param_dtype, ("",)),
+            "ln2": ParamSpec((cfg.d_model,), cfg.param_dtype, ("",)),
+            "attn": attention_param_specs(cfg),
+            "ffn": mlp_param_specs(cfg),
+        }
+    return specs
 
 
-def _residual_layer(cfg, blk: MambaBlock, x):
-    """One layer of the training forward: ``x + block(norm(x))``."""
-    p = blk.tensors()
-    return x + mamba_block(cfg, p, rms_norm(x, p["ln"]))[0]
+def _shares_attn(cfg, i: int) -> bool:
+    """Whether the shared block follows layer ``i``."""
+    return bool(cfg.attn_every) and (i + 1) % cfg.attn_every == 0
+
+
+def _train_layer(cfg, params: "SSMModel", i: int, x, pos):
+    """Layer ``i`` of the training forward: ``x + block(norm(x))``, then
+    the shared block where one follows the layer."""
+    p = params.layers[i].tensors()
+    x = x + mamba_block(cfg, p, rms_norm(x, p["ln"]))[0]
+    if _shares_attn(cfg, i):
+        x, _ = params.shared_attn(x, pos)
+    return x
 
 
 def ssm_forward(cfg, params: SSMModel, tokens, pos, cache=None):
     """cache = None (train) or the dict from :func:`ssm_init_cache`, whose
-    ``ssm``/``conv`` states are read and then overwritten in place, layer
-    by layer.  ``pos`` is unused by the attention-free family.  Without a
-    cache, under autograd and with ``cfg.remat``, each layer runs under
-    ``torch.utils.checkpoint``.  The reference's ``_constrain_act``
-    sharding hint is left out: it constrains nothing on one device."""
-    _no_hybrid(cfg)
+    ``ssm``/``conv`` states (and, for the hybrid, each application's
+    ``attn`` keys, values, positions and write position) are read and then
+    overwritten in place, layer by layer.  ``pos`` is the first token's
+    position (the hybrid's attention reads it).  Without a cache, under
+    autograd and with ``cfg.remat``, each layer runs under
+    ``torch.utils.checkpoint``."""
     emb = params.embed.tensors()
     x = embed_tokens(cfg, emb, tokens)
     if cache is None and cfg.remat and torch.is_grad_enabled():
-        for blk in params.layers:
-            x = checkpoint(_residual_layer, cfg, blk, x, use_reentrant=False)
+        for i in range(cfg.n_layers):
+            x = checkpoint(_train_layer, cfg, params, i, x, pos,
+                           use_reentrant=False)
         return rms_norm(x, emb["final_norm"]), None
+    attn = cache.get("attn") if cache is not None else None
     for i, blk in enumerate(params.layers):
         ssm_s = cache["ssm"][i] if cache is not None else None
         conv_s = cache["conv"][i] if cache is not None else None
@@ -353,6 +412,11 @@ def ssm_forward(cfg, params: SSMModel, tokens, pos, cache=None):
         if cache is not None:
             cache["ssm"][i].copy_(new_ssm)
             cache["conv"][i].copy_(new_conv)
+        if _shares_attn(cfg, i):
+            app = i // cfg.attn_every
+            c_app = None if attn is None else {
+                k: v[app] for k, v in attn.items()}
+            x, _ = params.shared_attn(x, pos, c_app)
     x = rms_norm(x, emb["final_norm"])
     return x, cache
 
@@ -367,27 +431,46 @@ def ssm_loss(cfg, params: SSMModel, batch):
 
 
 def ssm_cache_specs(cfg, batch: int, max_len: int) -> dict:
-    """The serving cache; its size does not depend on ``max_len`` (the
-    attention-free family keeps no KV cache)."""
-    _no_hybrid(cfg)
+    """The serving cache: per layer the SSM and conv states; for the
+    hybrid, per shared-block application a KV ring of ``max_len`` slots
+    (``attn``: ``k``, ``v`` (A, B, max_len, Hs, D) in the compute dtype,
+    ``positions`` (A, max_len) and ``pos`` (A,) int32)."""
     n, h, p = cfg.ssm.state, cfg.ssm_heads, cfg.ssm.head_dim
     w = cfg.ssm.conv_width
     conv_ch = cfg.d_inner + 2 * n
     h_ax = "tensor" if h % max(cfg.tp, 1) == 0 else ""
-    return {
+    specs = {
         "ssm": ParamSpec((cfg.n_layers, batch, h, p, n), f32,
                          ("layers", "batch", h_ax, "", "")),
         "conv": ParamSpec((cfg.n_layers, batch, w - 1, conv_ch),
                           cfg.compute_dtype, ("layers", "batch", "", "tensor")),
     }
+    if cfg.attn_every:
+        napp = _n_attn_apps(cfg)
+        hs, hd = cfg.stored_kv_heads, cfg.head_dim
+        specs["attn"] = {
+            "k": ParamSpec((napp, batch, max_len, hs, hd), cfg.compute_dtype,
+                           ("", "batch", "", "tensor", "")),
+            "v": ParamSpec((napp, batch, max_len, hs, hd), cfg.compute_dtype,
+                           ("", "batch", "", "tensor", "")),
+            "positions": ParamSpec((napp, max_len), torch.int32, ("", "")),
+            "pos": ParamSpec((napp,), torch.int32, ("",)),
+        }
+    return specs
 
 
 def ssm_init_cache(cfg, batch: int, max_len: int, device=None) -> dict:
-    specs = ssm_cache_specs(cfg, batch, max_len)
-    return {
-        k: torch.zeros(s.shape, dtype=s.dtype, device=device)
-        for k, s in specs.items()
-    }
+    """Zeros, except the attention slots' positions: :data:`INVALID_POS`
+    (unwritten)."""
+    def zeros(tree):
+        if isinstance(tree, ParamSpec):
+            return torch.zeros(tree.shape, dtype=tree.dtype, device=device)
+        return {k: zeros(v) for k, v in tree.items()}
+
+    cache = zeros(ssm_cache_specs(cfg, batch, max_len))
+    if cfg.attn_every:
+        cache["attn"]["positions"].fill_(INVALID_POS)
+    return cache
 
 
 def ssm_prefill(cfg, params, tokens, cache):

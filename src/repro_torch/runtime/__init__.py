@@ -3,7 +3,7 @@ trainer's fault tolerance (a copy of the JAX package's jax-free
 ``runtime/fault_tolerance.py``).
 
 The JAX package's ISA-control module comes with ``ROADMAP.md`` queue A
-item 13."""
+item 13b."""
 
 from .fault_tolerance import (  # noqa: F401
     Action,

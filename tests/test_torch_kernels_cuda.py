@@ -226,6 +226,23 @@ def test_sweep_apply_occupancy_at_the_smoke_tile(dev, sw):
     assert sweep.apply_occupancy(torch.float32, sw, smem) >= 1
 
 
+@pytest.mark.parametrize("dtype,whole", [(torch.float32, True),
+                                         (torch.bfloat16, False)])
+def test_apply_copy16_reports_the_launchers_row_copies(dev, dtype, whole):
+    """At the smoke's tile and the 13-point star's halo, f32 window rows
+    (36 elements, 144 bytes) copy as whole 16-byte blocks and bf16 rows
+    (72 bytes) do not; the launch equals its plain version either way."""
+    _, ins, o, ws, _, lo_w, hi_w = _launch(
+        (16, 32, 64), (8, 16, 32),
+        (_spec(star_stencil(3, 2), np.linspace(-0.4, 0.5, 13)),),
+        dtype=dtype, device=dev)
+    args = (ins, o, ws, lo_w, hi_w, (8, 16, 32), 0)
+    assert sweep.apply_copy16(*args) is whole
+    k = sweep.sweep_apply(*args)
+    torch.cuda.synchronize()
+    assert _same_bits(k, sweep.sweep_apply_plain(*args))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window_kind", ["ring", "trapezoid"])
 @pytest.mark.parametrize("pipelined", [True, False])
@@ -712,10 +729,11 @@ def test_corpus_programs_on_the_card_equal_the_cpu(dev, seed, window_kind):
 # -- the Mamba2 conv kernel -----------------------------------------------------
 
 # (batch, seq, channels, tile_s): a ragged last tile, one token, an odd
-# channel count (one channel per thread), and the serving shape of
-# Mamba2-2.7B's prefill (C = 5120 + 2·128).
+# channel count (one channel per thread), and the serving shapes of
+# Mamba2-2.7B's prefill (C = 5120 + 2·128) and Zamba2-2.7B's (C = 5120 +
+# 2·64).
 CONV_CASES = [(2, 37, 24, 8), (3, 1, 16, 4), (2, 37, 25, 8),
-              (4, 2048, 5376, 256)]
+              (4, 2048, 5376, 256), (4, 2048, 5248, 256)]
 
 
 def _conv_inputs(b, s, c, width, with_state, dtype, dev, seed=0):
@@ -840,18 +858,20 @@ def test_conv1d_takes_bf16_and_f32_weights_alike(dev, dtype):
     assert all(_same_bits(o, p) for o in outs)
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-2.7b"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_mamba2_smoke_model_on_the_card_equals_the_cpu(dev, dtype):
+def test_mamba2_smoke_model_on_the_card_equals_the_cpu(dev, dtype, arch):
     """Prefill (through the conv kernel) and two decode steps of the smoke
-    config on the card against the CPU, with the same parameters: f32 to
-    1e-5, bf16 within two bf16 ulps of the logits' scale (matmul
-    accumulation order differs between cuBLAS and the CPU)."""
+    config (Mamba2, and the Zamba2 hybrid with its shared attention) on
+    the card against the CPU, with the same parameters: f32 to 1e-5, bf16
+    within two bf16 ulps of the logits' scale (matmul accumulation order
+    differs between cuBLAS and the CPU)."""
     import dataclasses
 
     from repro_torch.configs import get_smoke_config
     from repro_torch.models import get_model
 
-    cfg = get_smoke_config("mamba2-2.7b")
+    cfg = get_smoke_config(arch)
     cfg = dataclasses.replace(cfg, compute_dtype=dtype, ssm=dataclasses.replace(
         cfg.ssm, pallas_conv=True, conv_tile=8))
     toks = torch.randint(0, cfg.vocab, (2, 23),

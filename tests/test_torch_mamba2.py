@@ -147,16 +147,16 @@ def test_config_dims_match_reference(kind):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("zamba2-2.7b", "item 7b"), ("granite-3-2b", "item 7c"),
+    ("internvl2-2b", "item 7c"), ("granite-3-2b", "item 7c"),
     ("whisper-large-v3", "item 7c"),
 ])
 def test_unported_architectures_name_their_roadmap_item(arch, item):
     with pytest.raises(NotImplementedError, match=item):
         tconfigs.get_config(arch)
-    hybrid = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
-                                 family="hybrid", attn_every=2)
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        t_get_model(hybrid)
+    dense = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
+                                family="dense")
+    with pytest.raises(NotImplementedError, match="item 7c"):
+        t_get_model(dense)
     # Training (item 7a) is ported: the loss is a finite f32 scalar.
     _, tc = _cfgs("float32")
     model = t_get_model(tc, device="cpu")

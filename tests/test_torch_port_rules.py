@@ -61,7 +61,10 @@ def test_the_scan_sees_the_port():
                    "launch/train.py", "data/pipeline.py",
                    "optim/optimizer.py", "optim/compression.py",
                    "checkpoint/checkpointer.py",
-                   "runtime/fault_tolerance.py"):
+                   "runtime/fault_tolerance.py", "configs/zamba2_2p7b.py",
+                   "examples/quickstart.py", "examples/stencil_pipeline.py",
+                   "examples/rk2_damped_jacobi.py",
+                   "examples/multigrid_vcycle.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 
@@ -76,7 +79,7 @@ def _no_cuda():
     "run_program", "from_reference", "causal_conv1d", "model_init",
     "model_init_cache", "model_prefill", "model_decode_step", "serve",
     "params_from_reference", "model_loss", "train_main",
-    "opt_state_from_reference",
+    "opt_state_from_reference", "hybrid_model_init", "hybrid_prefill",
 ])
 def test_entry_points_default_to_the_card(entry):
     _no_cuda()
@@ -129,6 +132,15 @@ def test_entry_points_default_to_the_card(entry):
         "train_main": lambda: train_main(["--smoke", "--steps", "1"]),
         "opt_state_from_reference": lambda: convert.opt_state_from_reference(
             {}, cfg),
+    })
+    # The Zamba2 hybrid, likewise.
+    hyb = get_smoke_config("zamba2-2.7b")
+    h_cpu = get_model(hyb, device="cpu")
+    h_params, h_cache = h_cpu.init(0), h_cpu.init_cache(1, 8)
+    calls.update({
+        "hybrid_model_init": lambda: get_model(hyb).init(0),
+        "hybrid_prefill": lambda: get_model(hyb).prefill(
+            h_params, {"tokens": toks}, h_cache),
     })
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
