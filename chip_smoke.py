@@ -121,7 +121,34 @@ points at full size:
   checks at 6 layers (one shared-block application); 3 steps on the
   repeated batch;
 * ``planned_conv``      — the prefill conv's shape with ``tile_s=None``:
-  the planned tile and the serving phase's 256, both timed.
+  the planned tile and the serving phase's 256, both timed;
+* ``granite_serve``     — Granite-3.0-2B at published width and depth (40
+  layers, 2.53 B f32 parameters, weights from seed 0) serving batch 4 ×
+  2048 prompt tokens + 16 through ``launch.serve.serve``: prefill and
+  decode ms (best of two warm runs), the profiler's idle share, peak
+  memory and the KV cache's size; prefill(S−1) + decode(1) against a
+  teacher-forced forward; 2 layers at full width on the card against the
+  CPU;
+* ``granite_train``     — the same model trained through
+  ``launch.train.train_step`` at batch 2 × 4096 (``LM_SHAPES["train_4k"]``,
+  the global batch cut to one card): a cold step and 3 timed steps
+  (tokens/s, 6·N·tokens against the bf16 peak, peak memory at most 75
+  GB), one profiled step, 5 steps on a repeated batch at lr 3e-4 (the
+  loss falls), and at 2 layers one step against the CPU's within
+  ``mamba2_train``'s bands and a bit-equal resume;
+* ``families_serve``    — the other seven transformer architectures at
+  published width, one prefill and 4 decode steps each, depth cut only
+  where the weights exceed 60 GB (``fit_layers``): internvl2-2b (a
+  256-patch prefix, decode at F + S + i), whisper-large-v3 (1500 frames,
+  4 × 448 prompt tokens, the cross keys and values), qwen1.5-32b,
+  internlm2-20b, llama3-405b, mixtral-8x22b (1 × 4608 tokens: past its
+  4096-token window) and arctic-480b: prefill and decode ms, peak memory
+  (at most 75 GB), layers run, MoE assignments dropped at capacity per
+  layer; the teacher-forced check gated where no assignment was dropped;
+  internvl2 and whisper at 2 layers, and mixtral at 1 layer (1 × 128,
+  routes compared token by token), against the CPU.  None of the port's
+  kernels is on these paths (the reference computes every product there
+  as a plain einsum): each phase asserts that their counts stay 0.
 
 Each phase zeroes the kernels' launch counters, drives the path, reads the
 counters (each kernel of the path must have launched), checks the output
@@ -151,6 +178,7 @@ CUDA, or outside a checkout, it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -209,8 +237,6 @@ def main() -> None:
                                                             "plans")
     os.environ["REPRO_TORCH_TUNED_DB_DIR"] = os.path.join(state.name,
                                                           "tuned")
-
-    import dataclasses
 
     import numpy as np
     import torch.nn.functional as F
@@ -2087,6 +2113,33 @@ def main() -> None:
         fail(f"tuned/traced gates failed: {json.dumps(failed, default=str)}")
 
     lap("planned_conv")
+    # -- granite_serve, granite_train, families_serve: the transformers ------
+    # None of the port's kernels is on these paths (the reference computes
+    # them with plain einsums): each phase asserts its counts stay 0.
+    lm_serve_phase(torch, dev, card_line, emit, reset, counts, max_err,
+                   "granite-3-2b", 4, 2048, 16, warm=2, profile=True,
+                   cpu_layers=2, name="granite_serve")
+    lap("granite_serve")
+    lm_train_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
+                   max_err)
+    lap("granite_train")
+    from repro_torch.configs import get_config
+
+    served = [
+        lm_serve_phase(torch, dev, card_line, emit, reset, counts, max_err,
+                       arch, b, n_tok, 5, layers=fit_layers(get_config(arch)),
+                       cpu_layers=cpu_layers, cpu_tokens=cpu_tokens)
+        for arch, b, n_tok, cpu_layers, cpu_tokens in FAMILIES]
+    emit({"phase": "families_serve", "card": card_line, "rows": [
+        {k: ph[k] for k in ("arch", "layers", "published_layers", "batch",
+                            "prompt_tokens", "prefill_ms",
+                            "decode_ms_per_step", "peak_memory_gb",
+                            "param_gb", "kv_cache_gb", "cross_kv_gb",
+                            "moe_dropped", "teacher_forcing_max_abs_err",
+                            "teacher_forcing_prefill_routes_identical",
+                            "teacher_forcing_gated")}
+        for ph in served]})
+    lap("families_serve")
     # -- summary ---------------------------------------------------------------
     rows = []
     every_phase = [ph for phases in summary.values() for ph in phases]
@@ -2334,8 +2387,6 @@ def mamba2_phase(torch, F, dev, card_line, emit, reset, counts, time_ms,
     """The ``mamba2_serve`` phase (``zamba2_serve`` for ``arch=
     "zamba2-2.7b"``: the hybrid, whose shared attention block keeps a KV
     ring per application); returns the conv kernel's record."""
-    import dataclasses
-
     from repro_torch.configs import get_config
     from repro_torch.kernels import conv1d
     from repro_torch.launch.serve import serve
@@ -2553,20 +2604,98 @@ def stream_ms(torch, fn, n) -> float:
     return a.elapsed_time(b) / n
 
 
+def train_checks(torch, cfg2, dev, bits_equal, max_err):
+    """At a small depth ``cfg2``: one training step on the card against
+    the same step on the CPU (plain versions), from the same weights
+    (seed 1) and state, on one pipeline batch of 256 tokens, within the
+    stated bands (asserted); then an async save after a step, a restore
+    into fresh objects and a step, bit-equal to the uninterrupted run
+    (asserted).  Returns ``(losses and gradient norms, parameter max abs
+    error, update sign agreement, save host seconds, resume exact)``."""
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import restore_state, save_state, train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, adamw_init
+
+    m_cpu, m_gpu = get_model(cfg2, device="cpu"), get_model(cfg2, device=dev)
+    p_cpu = m_cpu.init(1)
+    p_gpu = m_gpu.fam.module(cfg2, device=dev)
+    p_gpu.load_state_dict(p_cpu.state_dict())
+    small = TokenPipeline(DataConfig(vocab=cfg2.vocab, seq_len=256,
+                                     global_batch=1, seed=3))
+    ocfg2 = OptConfig(lr=1e-3, warmup_steps=1)
+    before = {k: v.detach().clone() for k, v in p_cpu.named_parameters()}
+    res = {}
+    for where, m2, prm in (("cpu", m_cpu, p_cpu), ("card", m_gpu, p_gpu)):
+        o2 = adamw_init(dict(prm.named_parameters()))
+        _, _, met = train_step(m2, prm, o2, small.batch_at(0), ocfg2)
+        res[where] = {"loss": float(met["loss"]),
+                      "grad_norm": float(met["grad_norm"])}
+    # Bands: the loss within two bf16 ulps, the gradient norm within four
+    # (bf16 compute, two accumulation orders: cuBLAS and the CPU's GEMM);
+    # Adam's first update is ±lr an element whatever the gradient's size,
+    # so an element whose tiny gradient flips sign moves by 2·lr: the
+    # parameters within 2·lr (+1%), and the updates' signs agreeing on at
+    # least 98% of the elements.
+    upd_agree, upd_n, p_err = 0, 0, 0.0
+    named_gpu = dict(p_gpu.named_parameters())
+    for k, pc in p_cpu.named_parameters():
+        pg = named_gpu[k].detach().cpu()
+        p_err = max(p_err, max_err(pg, pc.detach()))
+        du_c = torch.sign(pc.detach() - before[k])
+        du_g = torch.sign(pg - before[k])
+        upd_agree += int((du_c == du_g).sum())
+        upd_n += du_c.numel()
+    agree = upd_agree / upd_n
+    cpu_ok = (abs(res["card"]["loss"] - res["cpu"]["loss"])
+              <= 2.0 ** -7 * abs(res["cpu"]["loss"])
+              and abs(res["card"]["grad_norm"] - res["cpu"]["grad_norm"])
+              <= 2.0 ** -6 * res["cpu"]["grad_norm"]
+              and p_err <= 2.02 * ocfg2.lr and agree >= 0.98)
+    assert cpu_ok, (res, p_err, agree)
+    del m_cpu, p_cpu, p_gpu, before
+
+    # Save (async) after step 1, restore into fresh objects, step again:
+    # bit-equal to the uninterrupted run.
+    pa = m_gpu.init(2)
+    oa = adamw_init(dict(pa.named_parameters()))
+    pa, oa, _ = train_step(m_gpu, pa, oa, small.batch_at(1), ocfg2)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as d:
+        ck = Checkpointer(CheckpointConfig(d))
+        t0 = time.perf_counter()
+        save_state(ck, 1, pa, oa, blocking=False)
+        save_host_s = time.perf_counter() - t0
+        pa, oa, met_a = train_step(m_gpu, pa, oa, small.batch_at(2), ocfg2)
+        ck.wait()
+        pb = m_gpu.init(7)
+        ob, at = restore_state(ck, m_gpu, pb)
+        assert at == 1 and int(ob["count"]) == 1
+        pb, ob, met_b = train_step(m_gpu, pb, ob, small.batch_at(2), ocfg2)
+    named_b = dict(pb.named_parameters())
+    differ = sorted(
+        [f"params.{k}" for k, v in pa.named_parameters()
+         if not bits_equal(v.detach(), named_b[k].detach())]
+        + [f"{mv}.{k}" for mv in ("m", "v") for k in oa[mv]
+           if not bits_equal(oa[mv][k], ob[mv][k])])
+    resume_exact = (not differ
+                    and bits_equal(met_a["loss"], met_b["loss"])
+                    and int(oa["count"]) == int(ob["count"]) == 2)
+    assert resume_exact, differ[:10]
+    return res, p_err, agree, save_host_s, resume_exact
+
+
 def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
                        bits_equal, max_err, device_ms, arch="mamba2-2.7b",
                        repeat_lr=3e-4) -> dict:
     """The ``mamba2_train`` phase (``zamba2_train`` for ``arch=
     "zamba2-2.7b"``); returns its record (a conv record)."""
-    import dataclasses
-
     import numpy as np
 
-    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
     from repro_torch.configs import LM_SHAPES, get_config
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import conv1d
-    from repro_torch.launch.train import restore_state, save_state, train_step
+    from repro_torch.launch.train import train_step
     from repro_torch.models import get_model, ssm
     from repro_torch.models.layers import embed_tokens, rms_norm
     from repro_torch.optim import OptConfig, adamw_init
@@ -2671,74 +2800,11 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
 
     # Two layers at full width (the hybrid: attn_every layers, one
     # shared-block application): one step on the card against the same
-    # step on the CPU (plain versions), from the same weights and state.
+    # step on the CPU, and a resume bit-equal to the uninterrupted run.
     n2 = cfg.attn_every or 2
-    cfg2 = dataclasses.replace(cfg, n_layers=n2, loss_chunk=128)
-    m_cpu, m_gpu = get_model(cfg2, device="cpu"), get_model(cfg2, device=dev)
-    p_cpu = m_cpu.init(1)
-    p_gpu = ssm.SSMModel(cfg2, device=dev)
-    p_gpu.load_state_dict(p_cpu.state_dict())
-    small = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=256,
-                                     global_batch=1, seed=3))
-    ocfg2 = OptConfig(lr=1e-3, warmup_steps=1)
-    before = {k: v.detach().clone() for k, v in p_cpu.named_parameters()}
-    res = {}
-    for where, m2, prm in (("cpu", m_cpu, p_cpu), ("card", m_gpu, p_gpu)):
-        o2 = adamw_init(dict(prm.named_parameters()))
-        _, _, met = train_step(m2, prm, o2, small.batch_at(0), ocfg2)
-        res[where] = {"loss": float(met["loss"]),
-                      "grad_norm": float(met["grad_norm"])}
-    # Bands: the loss within two bf16 ulps, the gradient norm within four
-    # (bf16 compute, two accumulation orders: cuBLAS and the CPU's GEMM);
-    # Adam's first update is ±lr an element whatever the gradient's size,
-    # so an element whose tiny gradient flips sign moves by 2·lr: the
-    # parameters within 2·lr (+1%), and the updates' signs agreeing on at
-    # least 98% of the elements.
-    upd_agree, upd_n, p_err = 0, 0, 0.0
-    named_gpu = dict(p_gpu.named_parameters())
-    for k, pc in p_cpu.named_parameters():
-        pg = named_gpu[k].detach().cpu()
-        p_err = max(p_err, max_err(pg, pc.detach()))
-        du_c = torch.sign(pc.detach() - before[k])
-        du_g = torch.sign(pg - before[k])
-        upd_agree += int((du_c == du_g).sum())
-        upd_n += du_c.numel()
-    agree = upd_agree / upd_n
-    cpu_ok = (abs(res["card"]["loss"] - res["cpu"]["loss"])
-              <= 2.0 ** -7 * abs(res["cpu"]["loss"])
-              and abs(res["card"]["grad_norm"] - res["cpu"]["grad_norm"])
-              <= 2.0 ** -6 * res["cpu"]["grad_norm"]
-              and p_err <= 2.02 * ocfg2.lr and agree >= 0.98)
-    assert cpu_ok, (res, p_err, agree)
-    del m_cpu, p_cpu, p_gpu, before
-
-    # Save (async) after step 1, restore into fresh objects, step again:
-    # bit-equal to the uninterrupted run.
-    pa = m_gpu.init(2)
-    oa = adamw_init(dict(pa.named_parameters()))
-    pa, oa, _ = train_step(m_gpu, pa, oa, small.batch_at(1), ocfg2)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as d:
-        ck = Checkpointer(CheckpointConfig(d))
-        t0 = time.perf_counter()
-        save_state(ck, 1, pa, oa, blocking=False)
-        save_host_s = time.perf_counter() - t0
-        pa, oa, met_a = train_step(m_gpu, pa, oa, small.batch_at(2), ocfg2)
-        ck.wait()
-        pb = m_gpu.init(7)
-        ob, at = restore_state(ck, m_gpu, pb)
-        assert at == 1 and int(ob["count"]) == 1
-        pb, ob, met_b = train_step(m_gpu, pb, ob, small.batch_at(2), ocfg2)
-    named_b = dict(pb.named_parameters())
-    differ = sorted(
-        [f"params.{k}" for k, v in pa.named_parameters()
-         if not bits_equal(v.detach(), named_b[k].detach())]
-        + [f"{mv}.{k}" for mv in ("m", "v") for k in oa[mv]
-           if not bits_equal(oa[mv][k], ob[mv][k])])
-    resume_exact = (not differ
-                    and bits_equal(met_a["loss"], met_b["loss"])
-                    and int(oa["count"]) == int(ob["count"]) == 2)
-    assert resume_exact, differ[:10]
-    del pa, oa, pb, ob, m_gpu
+    res, p_err, agree, save_host_s, resume_exact = train_checks(
+        torch, dataclasses.replace(cfg, n_layers=n2, loss_chunk=128), dev,
+        bits_equal, max_err)
     torch.cuda.empty_cache()
 
     conv_tb = conv_bytes / HBM_BYTES_PER_S * 1e3
@@ -2774,6 +2840,388 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
         "card": card_line,
     }
     emit(phase)
+    assert falls, repeated
+    return phase
+
+
+# families_serve: (arch, batch, prompt tokens, layers and tokens of the
+# card-vs-CPU check, 0: none).  Depth is cut only where the weights would
+# not fit (fit_layers); mixtral's 4608-token prompt passes its 4096-token
+# window, so the window masks on the card.
+FAMILIES = [
+    ("internvl2-2b", 4, 2048, 2, 256),
+    ("whisper-large-v3", 4, 448, 2, 256),
+    ("qwen1.5-32b", 4, 2048, 0, 0),
+    ("internlm2-20b", 4, 2048, 0, 0),
+    ("llama3-405b", 4, 2048, 0, 0),
+    ("mixtral-8x22b", 1, 4608, 1, 128),
+    ("arctic-480b", 4, 2048, 1, 64),
+]
+WEIGHTS_BUDGET_GB = 60.0  # of the card's 80: activations, casts, caches
+
+
+def fit_layers(cfg, budget_gb=WEIGHTS_BUDGET_GB) -> int:
+    """The most decoder layers whose weights, with the embeddings (and an
+    encoder, which is never cut), fit in ``budget_gb``."""
+    from repro_torch.models import count_params
+
+    nbytes = _itemsize(cfg.param_dtype)
+    fixed = count_params(dataclasses.replace(cfg, n_layers=0)) * nbytes
+    per = count_params(dataclasses.replace(cfg, n_layers=1)) * nbytes - fixed
+    return min(cfg.n_layers, int((budget_gb * 1e9 - fixed) // per))
+
+
+def _itemsize(dtype) -> int:
+    import torch
+
+    return torch.empty((), dtype=dtype).element_size()
+
+
+def _forward_logits(torch, cfg, params, prompts, extra, last=None):
+    """A teacher-forced forward of ``prompts`` (after the VLM prefix, or
+    from the encoded frames), under ``inference_mode``: the logits of the
+    prompt's positions (the last ``last`` of them, or all)."""
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.layers import unembed
+
+    with torch.inference_mode():
+        if cfg.family == "encdec":
+            enc = encdec.encode(cfg, params, extra["frames"])
+            x, _ = encdec.decode_stack(cfg, params, prompts, 0, enc)
+            del enc
+        else:
+            pre = extra.get("prefix_embeds")
+            x, _ = transformer.lm_forward(cfg, params, prompts, 0,
+                                          prefix_embeds=pre)
+            if pre is not None:
+                x = x[:, pre.shape[1]:]
+        if last is not None:
+            x = x[:, -last:]
+        return unembed(cfg, params.embed.tensors(), x)
+
+
+def lm_serve_phase(torch, dev, card_line, emit, reset, counts, max_err,
+                   arch, batch, prompt, gen, layers=None, warm=1,
+                   profile=False, cpu_layers=0, cpu_tokens=256,
+                   name=None) -> dict:
+    """One transformer family served through ``launch.serve.serve`` at
+    published width, ``layers`` decoder layers (None: all), weights from
+    seed 0: a cold run, then ``warm`` warm runs for the times (best of);
+    the main path launches none of the port's kernels (their counts stay
+    0).  Checks: the tokens' shape and range; prefill(S−1) + decode(1)
+    against teacher-forced forwards, in the band of the reference's
+    ``tests/test_models.py::test_decode_matches_teacher_forcing``: the
+    prefill's last logits against a forward of the same S−1 tokens (same
+    capacity, so an MoE's routes must be identical; always gated), the
+    decode step's against a forward of all S tokens (gated only where
+    that forward dropped no MoE assignment: a capacity depends on the
+    token count); at ``cpu_layers`` layers and
+    full width, the card against the CPU (plain versions, same weights):
+    prefill and 2 decode steps at batch 1 × ``cpu_tokens``, or for MoE
+    one forward whose routes are compared token by token, the logits held
+    on the tokens whose routes agree.  Returns the phase record."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import serve, stub_inputs
+    from repro_torch.models import get_model
+
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full,
+                                                          n_layers=layers)
+    model = get_model(cfg, device=dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    param_gb = sum(p.numel() * p.element_size()
+                   for p in params.parameters()) / 1e9
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt), generator=g,
+                            device=dev)
+    extra = stub_inputs(cfg, batch, g)
+    f = (extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra
+         else 0)
+    specs = model.cache_specs(batch, f + prompt + gen)
+    cache_gb = {}
+    for part in ("self", "cross"):
+        sub = specs.get(part, specs if part == "self" else {})
+        cache_gb[part] = sum(prod(sub[k].shape) * _itemsize(sub[k].dtype)
+                             for k in ("k", "v") if k in sub) / 1e9
+
+    # The main path: counts zeroed just before, read just after.
+    rec = params.moe_routes = [] if cfg.moe is not None else None
+    reset()
+    toks, cold = serve(cfg, params, prompts, gen, device=dev, **extra)
+    launched = counts()
+    params.moe_routes = None
+    assert not any(launched.values()), launched  # no kernel of ours here
+    assert tuple(toks.shape) == (batch, gen), toks.shape
+    assert int(toks.min()) >= 0 and int(toks.max()) < cfg.vocab
+    runs = [serve(cfg, params, prompts, gen, device=dev, **extra)
+            for _ in range(warm)]
+    same_tokens = all(bool(torch.equal(t, toks)) for t, _ in runs)
+    prefill_ms = min(w["prefill_s"] for _, w in runs) * 1e3
+    decode_ms = min(w["decode_s"] for _, w in runs) * 1e3 / (gen - 1)
+    drops = None
+    if rec is not None:
+        n = cfg.n_layers
+        drops = {"prefill_by_layer": [int(r["dropped"].sum())
+                                      for r in rec[:n]],
+                 "decode_total": int(sum(int(r["dropped"].sum())
+                                         for r in rec[n:])),
+                 "assignments_per_layer": int(rec[0]["dropped"].numel())}
+    prof = None
+    if profile:
+        # Where the time goes, after the timed runs: one prefill and one
+        # decode step under the profiler.
+        pc = model.init_cache(batch, f + prompt + 1)
+        prof = {"prefill": profile_breakdown(torch, lambda: model.prefill(
+            params, {"tokens": prompts, **extra}, pc))}
+        prof["decode_step"] = profile_breakdown(
+            torch, lambda: model.decode_step(params, pc, toks[:, :1],
+                                             f + prompt))
+        del pc
+
+    # prefill(S-1) + decode(1) against teacher-forced forwards.  The
+    # prefill's last logits are held to a forward of the same S-1 tokens:
+    # the same token count gives an MoE layer the same capacity, so the
+    # two route alike (asserted) and this half is gated for every family.
+    # The decode step is held to a forward of all S tokens, whose capacity
+    # differs: gated only where that forward dropped no assignment.
+    moe = cfg.moe is not None
+    pre_rec = params.moe_routes = [] if moe else None
+    cache = model.init_cache(batch, f + prompt)
+    lg1, cache = model.prefill(params, {"tokens": prompts[:, :-1], **extra},
+                               cache)
+    lg2, _ = model.decode_step(params, cache, prompts[:, -1:], f + prompt - 1)
+    del cache
+    tf_rec = params.moe_routes = [] if moe else None
+    ref = _forward_logits(torch, cfg, params, prompts, extra, last=2).float()
+    routes_same = None
+    if moe:
+        same_rec = params.moe_routes = []
+        ref1 = _forward_logits(torch, cfg, params, prompts[:, :-1], extra,
+                               last=1).float()[:, 0]
+        routes_same = len(same_rec) == cfg.n_layers and all(
+            bool(torch.equal(a["eidx"], b["eidx"]))
+            and bool(torch.equal(a["dropped"], b["dropped"]))
+            for a, b in zip(pre_rec[:cfg.n_layers], same_rec))
+    else:
+        ref1 = ref[:, 0]  # causal: the S-token forward's position S-2
+    params.moe_routes = None
+    tf_err = [max_err(lg1[:, 0], ref1), max_err(lg2[:, 0], ref[:, 1])]
+    tf_prefill_ok, tf_ok = (
+        bool(torch.allclose(a[:, 0].float(), r, atol=0.2, rtol=0.05))
+        for a, r in ((lg1, ref1), (lg2, ref[:, 1])))
+    tf_dropped = (None if tf_rec is None else
+                  int(sum(int(r["dropped"].sum()) for r in tf_rec)))
+    tf_gated = not tf_dropped
+    del lg1, lg2, ref, ref1
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    cpu = None
+    if cpu_layers:
+        small = dataclasses.replace(
+            full, n_layers=cpu_layers,
+            enc_layers=cpu_layers if full.enc_layers else 0)
+        cpu = lm_card_vs_cpu(torch, small, dev, max_err, cpu_tokens)
+    phase = {
+        "phase": name or f"{arch}_serve", "arch": cfg.name,
+        "layers": cfg.n_layers, "published_layers": full.n_layers,
+        "enc_layers": cfg.enc_layers or None, "d_model": cfg.d_model,
+        "params": n_params, "param_gb": param_gb,
+        "param_dtype": str(cfg.param_dtype).removeprefix("torch."),
+        "batch": batch, "prompt_tokens": prompt, "prefix_tokens": f,
+        "frames": cfg.frontend_len if cfg.family == "encdec" else None,
+        "generated_tokens": gen, "decode_steps": gen - 1,
+        "launches": launched, "init_s": init_s, "cold": cold,
+        "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+        "prefill_tokens_per_s": batch * prompt / prefill_ms * 1e3,
+        "decode_tokens_per_s": batch / decode_ms * 1e3,
+        "same_tokens_warm": same_tokens, "peak_memory_gb": peak_gb,
+        "kv_cache_gb": cache_gb["self"], "cross_kv_gb": cache_gb["cross"],
+        "moe_dropped": drops, "profile": prof,
+        "teacher_forcing_max_abs_err": tf_err,
+        "teacher_forcing_prefill_ok": tf_prefill_ok,
+        "teacher_forcing_prefill_routes_identical": routes_same,
+        "teacher_forcing_ok": tf_ok,
+        "teacher_forcing_dropped_assignments": tf_dropped,
+        "teacher_forcing_gated": tf_gated, "card_vs_cpu": cpu,
+        "card": card_line,
+    }
+    emit(phase)
+    assert tf_prefill_ok and routes_same is not False, (tf_err, routes_same)
+    assert tf_ok or not tf_gated, tf_err
+    assert peak_gb <= 75.0, peak_gb
+    return phase
+
+
+def lm_card_vs_cpu(torch, cfg2, dev, max_err, tokens) -> dict:
+    """``cfg2`` (a small depth at full width) on the card and on the CPU
+    (plain versions) with the same weights (seed 1, drawn on the card and
+    copied to the CPU).
+    Dense, VLM and encoder-decoder: prefill of batch 1 × ``tokens`` (after
+    the whole prefix, or from all the frames) and 2 decode steps, the
+    logits within the band of ``mamba2_serve``'s check (asserted).  MoE:
+    one forward of the tokens; the share of (token, k) routes that differ
+    between the two, and the logits held on the tokens whose routes (and
+    drops) agree (asserted)."""
+    from repro_torch.launch.serve import stub_inputs
+    from repro_torch.models import get_model
+
+    m_gpu = get_model(cfg2, device=dev)
+    p_gpu = m_gpu.init(1)
+    p_cpu = m_gpu.fam.module(cfg2, device="cpu")
+    p_cpu.load_state_dict(p_gpu.state_dict())
+    g = torch.Generator().manual_seed(7)
+    small = torch.randint(0, cfg2.vocab, (1, tokens + 2), generator=g)
+    extra = stub_inputs(cfg2, 1, g)
+    f = (extra["prefix_embeds"].shape[1] if "prefix_embeds" in extra
+         else 0)
+    out, routes = {}, {}
+    for where, prm in (("cpu", p_cpu), ("card", p_gpu)):
+        d = "cpu" if where == "cpu" else dev
+        ex = {k: v.to(d) for k, v in extra.items()}
+        if cfg2.moe is not None:
+            rec = prm.moe_routes = []
+            out[where] = _forward_logits(torch, cfg2, prm,
+                                         small[:, :tokens].to(d),
+                                         ex)[0].float().cpu()
+            routes[where] = [(r["eidx"].cpu(), r["dropped"].cpu())
+                             for r in rec]
+            continue
+        m2 = get_model(cfg2, device=d)
+        cache = m2.init_cache(1, f + tokens + 2)
+        lg, cache = m2.prefill(prm, {"tokens": small[:, :tokens], **ex},
+                               cache)
+        lgs = [lg]
+        for i in (tokens, tokens + 1):
+            lg, cache = m2.decode_step(prm, cache, small[:, i:i + 1], f + i)
+            lgs.append(lg)
+        out[where] = torch.cat(lgs, 1).float().cpu()
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+    # Band: bf16 logits of magnitude ~1-4 (ulp 2^-7..2^-6) from two
+    # accumulation orders (cuBLAS, the CPU's GEMM) and per-op bf16 rounding.
+    res = {"layers": cfg2.n_layers, "tokens": tokens,
+           "max_abs_err": max_err(out["card"], out["cpu"])}
+    if cfg2.moe is None:
+        ok = bool(torch.allclose(out["card"], out["cpu"], atol=0.1,
+                                 rtol=0.02))
+    else:
+        agree = torch.ones(tokens, dtype=torch.bool)
+        same = differ = 0
+        for (e_c, d_c), (e_g, d_g) in zip(routes["cpu"], routes["card"]):
+            eq = (e_c == e_g) & (d_c == d_g)
+            same += int(eq.sum())
+            differ += int((~eq).sum())
+            agree &= eq.all(-1)
+        res.update(route_share_differ=differ / (same + differ),
+                   tokens_agreeing=int(agree.sum()),
+                   max_abs_err_agreeing=max_err(out["card"][agree],
+                                                out["cpu"][agree]))
+        ok = bool(torch.allclose(out["card"][agree], out["cpu"][agree],
+                                 atol=0.1, rtol=0.02))
+    res["ok"] = ok
+    assert ok, res
+    return res
+
+
+def lm_train_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
+                   max_err, arch="granite-3-2b", repeat_lr=3e-4) -> dict:
+    """``granite_train``: the model at published width and depth trained
+    through ``launch.train.train_step`` on the pipeline's synthetic
+    batches at ``LM_SHAPES["train_4k"]``'s 4096 tokens, batch 2 (the
+    global batch of 256 cut to one card): a cold step and 3 timed steps
+    (host clock, card synchronised; tokens/s, 6·N·tokens against the bf16
+    peak, peak memory at most 75 GB), one step under the profiler, 5 steps
+    on a repeated batch at ``repeat_lr`` (the loss falls), and at 2 layers
+    :func:`train_checks`.  The main path launches none of the port's
+    kernels."""
+    import numpy as np
+
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, adamw_init
+
+    batch, seq = 2, LM_SHAPES["train_4k"].seq_len  # global batch 256 -> 2
+    cfg = get_config(arch)
+    model = get_model(cfg, device=dev)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=batch, seed=0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    opt_state = adamw_init(dict(params.named_parameters()))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+
+    def step(i, ocfg=OptConfig(), b=None):
+        nonlocal params, opt_state
+        params, opt_state, met = train_step(
+            model, params, opt_state, data.batch_at(i) if b is None else b,
+            ocfg)
+        return met
+
+    # The main path: counts zeroed just before, read just after.
+    reset()
+    step_s, losses, gnorms = [], [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        met = step(i)
+        losses.append(float(met["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(met["grad_norm"]))
+    launched = counts()
+    assert not any(launched.values()), launched
+    assert all(np.isfinite(v) for v in losses + gnorms), (losses, gnorms)
+    timed_ms = [t * 1e3 for t in step_s[1:]]
+    step_ms = statistics.median(timed_ms)
+    tokens = batch * seq
+    model_flops = 6 * n_params * tokens
+    prof = profile_breakdown(torch, lambda: step(4), cpu=False)
+    repeat = data.batch_at(0)
+    fast = OptConfig(lr=repeat_lr, warmup_steps=1)
+    repeated = [float(step(0, fast, repeat)["loss"]) for _ in range(5)]
+    falls = repeated[-1] < repeated[0]  # asserted after the record prints
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt_state
+    torch.cuda.empty_cache()
+
+    res, p_err, agree, save_host_s, resume_exact = train_checks(
+        torch, dataclasses.replace(cfg, n_layers=2, loss_chunk=128), dev,
+        bits_equal, max_err)
+    torch.cuda.empty_cache()
+    phase = {
+        "phase": f"{arch.split('-')[0]}_train", "arch": cfg.name,
+        "layers": cfg.n_layers, "d_model": cfg.d_model, "params": n_params,
+        "batch": batch, "seq": seq, "tokens_per_step": tokens,
+        "init_s": init_s, "launches": launched,
+        "cold_step_ms": step_s[0] * 1e3, "step_ms": step_ms,
+        "timed_step_ms": timed_ms, "tokens_per_s": tokens / step_ms * 1e3,
+        "model_flops_per_step": model_flops,
+        "model_flops_share_of_bf16_peak": (
+            model_flops / (step_ms / 1e3) / BF16_FLOPS_PER_S),
+        "peak_memory_gb": peak_gb, "losses": losses, "grad_norms": gnorms,
+        "repeated_batch_losses": repeated, "repeat_lr": repeat_lr,
+        "repeated_batch_loss_falls": falls, "profile_step": prof,
+        "card_vs_cpu_2layer": res, "card_vs_cpu_param_max_abs_err": p_err,
+        "card_vs_cpu_update_sign_agreement": agree,
+        "save_host_s": save_host_s, "resume_bit_equal": resume_exact,
+        "card": card_line,
+    }
+    emit(phase)
+    assert peak_gb <= 75.0, peak_gb
     assert falls, repeated
     return phase
 

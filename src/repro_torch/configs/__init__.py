@@ -1,9 +1,8 @@
 """Architecture registry: ``get_config(name)`` / ``get_smoke_config(name)``
 / ``list_archs()``, with the JAX package's names.
 
-The SSM family (``mamba2_2p7b``) and the Zamba2 hybrid (``zamba2_2p7b``)
-have a module here; the transformer families raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that brings them.
+Each of the ten architectures has a module here with the published dims
+and a ``smoke()`` reduced config of the same family for CPU tests.
 """
 
 from __future__ import annotations
@@ -24,10 +23,6 @@ ARCHS = [
     "arctic_480b",
     "mamba2_2p7b",
 ]
-PORTED = ("mamba2_2p7b", "zamba2_2p7b")
-# The queue-A item of ROADMAP.md that brings each architecture not ported.
-_LATER = {a: "item 7c (the transformer families)" for a in ARCHS
-          if a not in PORTED}
 
 
 def _norm(name: str) -> str:
@@ -38,10 +33,6 @@ def _module(name: str):
     arch = _norm(name)
     if arch not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}")
-    if arch not in PORTED:
-        raise NotImplementedError(
-            f"{name} is not in the port yet: ROADMAP.md queue A, {_LATER[arch]}"
-        )
     return importlib.import_module(f"{__name__}.{arch}")
 
 

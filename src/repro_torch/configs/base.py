@@ -9,9 +9,6 @@ tests.  ``vocab_padded`` is the vocabulary rounded up to a multiple of
 (``core.padding.advise_dim``: one 128-byte line of the compute dtype);
 ``padded_heads`` and ``stored_kv_heads`` are the reference's head
 padding for tensor parallelism, the identity at ``tp = 1``.
-
-The SSM family and the Zamba2 hybrid run in the port so far; the fields
-of the other families (MoE, encoder-decoder) are kept as data.
 """
 
 from __future__ import annotations

@@ -8,15 +8,16 @@ holds grids as arrays.  :func:`from_reference` reads both into the port's
 into the exact values the kernels multiply with.
 
 A model's weights are the reference's parameter tree:
-:func:`params_from_reference` loads it into the port's module and
-:func:`params_to_reference` gives it back; :func:`cache_from_reference`
-carries a serving cache across, so a JAX prefill can be continued by the
-port's decode.  A training state crosses with
-:func:`opt_state_from_reference` / :func:`opt_state_to_reference`: the
-reference holds the moments as trees like its parameters (``layers``
-stacked (L, ...)), the port as ``{name: tensor}`` over the module's
-parameter names (``layers.<i>.<leaf>``).  The reference's trees cross as
-numpy arrays; bf16 values as float32 arrays (numpy has no bfloat16).
+:func:`params_from_reference` loads it into the port's module of the
+config's family and :func:`params_to_reference` gives it back;
+:func:`cache_from_reference` carries a serving cache across, so a JAX
+prefill can be continued by the port's decode.  A training state crosses
+with :func:`opt_state_from_reference` / :func:`opt_state_to_reference`:
+the reference holds the moments as trees like its parameters (each
+stacked group, ``layers``, ``enc_layers`` and ``dec_layers``, stacked
+(L, ...)), the port as ``{name: tensor}`` over the module's parameter
+names (``layers.<i>.<leaf path>``).  The reference's trees cross as numpy
+arrays; bf16 values as float32 arrays (numpy has no bfloat16).
 """
 
 from __future__ import annotations
@@ -78,19 +79,30 @@ def stencil_from_reference(offsets, weights):
     return offs, wts
 
 
+# The groups of the reference's trees whose leaves are stacked (L, ...).
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
+def _family(cfg):
+    from .models.model_api import family
+
+    return family(cfg)
+
+
 def params_from_reference(params_np, cfg, device=None):
-    """The port's :class:`~repro_torch.models.ssm.SSMModel` holding the
+    """The port's module of ``cfg``'s family
+    (:class:`~repro_torch.models.ssm.SSMModel`,
+    :class:`~repro_torch.models.transformer.LMModel` or
+    :class:`~repro_torch.models.encdec.EncDecModel`) holding the
     reference's parameters.  ``params_np`` is the reference's tree as
-    numpy arrays (``{"embed": {...}, "layers": {...}}``, the ``layers``
-    leaves stacked (L, ...), and for the hybrid ``"shared_attn": {"ln1",
-    "ln2", "attn": {...}, "ffn": {...}}``); each leaf is cast to its
-    spec's dtype (bf16 leaves arrive as float32 arrays, and f32 → bf16 is
-    exact for them)."""
+    numpy arrays (``{"embed": {...}, "layers": {...}}``, the stacked
+    groups' leaves (L, ...), and for the hybrid ``"shared_attn"``); each
+    leaf is cast to its parameter's dtype (bf16 leaves arrive as float32
+    arrays, and f32 → bf16 is exact for them)."""
     from .models.layers import flatten_tree
-    from .models.ssm import SSMModel
 
     dev = resolve_device(device)
-    model = SSMModel(cfg, device=dev)
+    model = _family(cfg).module(cfg, device=dev)
     return model.load_flat(
         (path, torch.from_numpy(np.array(a, dtype=np.float32)).to(dev))
         for path, a in flatten_tree(params_np)
@@ -98,21 +110,28 @@ def params_from_reference(params_np, cfg, device=None):
 
 
 def cache_from_reference(cache_np, cfg, device=None):
-    """The port's serving cache (``ssm``: (L, B, H, P, N) f32, ``conv``:
-    (L, B, W-1, C) in the compute dtype; for the hybrid ``attn``: ``k``,
-    ``v`` (A, B, T, Hs, D), ``positions`` (A, T) and ``pos`` (A,) int32)
-    from the reference's, given as numpy arrays (bf16 leaves arrive as
-    float32; integer leaves as integers)."""
+    """The port's serving cache from the reference's, given as numpy
+    arrays (bf16 leaves as float32; integer leaves as integers), each
+    leaf in its spec's dtype.  SSM family: ``ssm`` (L, B, H, P, N) f32,
+    ``conv`` (L, B, W-1, C), for the hybrid ``attn`` (``k``, ``v`` (A, B,
+    T, Hs, D), ``positions`` (A, T), ``pos`` (A,)); transformer: ``k``,
+    ``v`` (L, B, T, Hs, D), ``positions`` (L, T), ``pos`` (L,);
+    encoder-decoder: ``self`` as the transformer's and ``cross`` (``k``,
+    ``v`` (L, B, F, Hs, D))."""
     from .models.layers import flatten_tree
-    from .models.ssm import ssm_cache_specs
 
     dev = resolve_device(device)
-    batch = int(np.shape(cache_np["ssm"])[1])
-    max_len = (int(np.shape(cache_np["attn"]["k"])[2])
-               if "attn" in cache_np else 0)
     got = dict(flatten_tree(cache_np))
+    if cfg.family in ("ssm", "hybrid"):
+        batch = int(np.shape(cache_np["ssm"])[1])
+        k = got.get("attn.k")
+    else:
+        k = got.get("self.k", got.get("k"))
+        batch = int(np.shape(k)[1])
+    max_len = 0 if k is None else int(np.shape(k)[2])
     out: dict = {}
-    for path, spec in flatten_tree(ssm_cache_specs(cfg, batch, max_len)):
+    specs = _family(cfg).cache_specs(cfg, batch, max_len)
+    for path, spec in flatten_tree(specs):
         a = np.asarray(got[path])
         if tuple(a.shape) != spec.shape:
             raise ValueError(f"cache {path}: {a.shape} is not {spec.shape}")
@@ -140,45 +159,42 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _unstack(tree_np, device) -> dict:
     """``{port name: f32 tensor}`` from a tree shaped as the reference's
-    parameters: ``embed.<leaf>`` as is, each ``layers.<leaf>`` (L, ...)
-    split into ``layers.<i>.<leaf>``."""
+    parameters: each leaf of a stacked group, ``<group>.<path>`` (L, ...),
+    split into ``<group>.<i>.<path>``; the others as they are."""
     from .models.layers import flatten_tree
 
     out = {}
     for path, a in flatten_tree(tree_np):
         t = torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
-        group, leaf = path.split(".", 1)
-        if group == "layers":
+        group, _, rest = path.partition(".")
+        if group in STACKED:
             for i, v in enumerate(t):
-                out[f"layers.{i}.{leaf}"] = v.clone()
+                out[f"{group}.{i}.{rest}"] = v.clone()
         else:
             out[path] = t
     return out
 
 
 def _stack(named) -> dict:
-    """The reference's tree (numpy, ``layers`` stacked (L, ...)) from
-    ``{port name: tensor}``; the inverse of :func:`_unstack`."""
+    """The reference's tree (numpy, the stacked groups' leaves (L, ...))
+    from ``{port name: tensor}``; the inverse of :func:`_unstack`."""
     tree: dict = {}
-    layers: dict = {}
+    stacked: dict = {}
     for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            layers.setdefault(parts[2], []).append((int(parts[1]), t))
+        group, _, rest = name.partition(".")
+        i, _, leaf = rest.partition(".")
+        if group in STACKED and i.isdigit():
+            stacked.setdefault(f"{group}.{leaf}", []).append((int(i), t))
         else:
             _set_path(tree, name, _to_numpy(t))
-    if layers:
-        tree["layers"] = {
-            leaf: np.stack([_to_numpy(t) for _, t in sorted(vs)])
-            for leaf, vs in layers.items()
-        }
+    for path, vs in stacked.items():
+        _set_path(tree, path, np.stack([_to_numpy(t) for _, t in sorted(vs)]))
     return tree
 
 
 def params_to_reference(model) -> dict:
-    """The reference's parameter tree (numpy) from the port's
-    :class:`~repro_torch.models.ssm.SSMModel`: the inverse of
-    :func:`params_from_reference`."""
+    """The reference's parameter tree (numpy) from the port's module: the
+    inverse of :func:`params_from_reference`."""
     return _stack(dict(model.named_parameters()))
 
 
@@ -186,10 +202,9 @@ def opt_state_from_reference(opt_np, cfg, device=None) -> dict:
     """The port's AdamW state (``m``, ``v``: ``{name: f32 tensor}``,
     ``count``: int32 0-dim) from the reference's (``m`` and ``v`` trees
     shaped as its parameters, ``count``), given as numpy arrays."""
-    from .models.ssm import SSMModel
-
     dev = resolve_device(device)
-    names = [n for n, _ in SSMModel(cfg, device="meta").named_parameters()]
+    names = [n for n, _ in
+             _family(cfg).module(cfg, device="meta").named_parameters()]
     out = {}
     for k in ("m", "v"):
         got = _unstack(opt_np[k], dev)

@@ -1,20 +1,20 @@
 """End-to-end training driver.
 
-    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-2.7b \\
-        --batch 2 --seq 4096 --steps 50 --conv-tile 256 --ckpt-dir ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch granite-3-2b \\
+        --batch 2 --seq 4096 --steps 50 --ckpt-dir ckpt
 
 runs on the card; ``--smoke --device cpu`` trains the reduced config on
 the CPU through the kernels' plain versions.  The JAX package's loop: the
 token pipeline, AdamW, checkpoint/restart (auto-resume from LATEST, async
 writes in the reference's format), and the heartbeat monitor.  One
-process drives one device.  ``--arch`` takes the SSM family and the
-Zamba2 hybrid (``mamba2-2.7b``, ``zamba2-2.7b``), through the same code;
-the reference's mesh, its ``shard_map`` compression path and the
-transformer families come with ``ROADMAP.md`` queue A items 12 and 7c
-(an unported arch raises ``NotImplementedError`` naming its item).  The
-default ``--arch`` stays ``mamba2-2.7b`` until then (the reference
-defaults to ``granite-3-2b``).  ``--conv-tile N`` routes the causal conv
-through the conv kernel with N tokens per block, as
+process drives one device; the reference's mesh and its ``shard_map``
+compression path come with ``ROADMAP.md`` queue A item 12.  ``--arch``
+takes the SSM family, the Zamba2 hybrid, and the dense, MoE and VLM
+transformers (the default is ``granite-3-2b``, as in the reference); a
+VLM trains on the pipeline's token batches alone, as the reference's
+pipeline feeds it.  The encoder-decoder raises ``ValueError``: the
+pipeline gives no ``frames``.  ``--conv-tile N`` routes the causal conv
+of an SSM through the conv kernel with N tokens per block, as
 ``launch/serve.py``'s flag does.
 
 :func:`train_step` is the step: the loss under autograd, ``backward()``,
@@ -50,7 +50,8 @@ __all__ = ["main", "restore_state", "save_state", "train_step"]
 
 def train_step(model, params, opt_state, batch, opt_cfg: OptConfig):
     """One training step of ``params`` (the family's module) on ``batch``
-    (``tokens``, ``targets``, ``mask``; numpy arrays or tensors).  Returns
+    (``tokens``, ``targets``, ``mask``, and ``prefix_embeds`` or
+    ``frames`` where the family takes them; numpy arrays or tensors).  Returns
     ``(params, opt_state, metrics)``: the parameters are updated in place,
     their gradients freed; ``metrics`` holds ``loss``, ``grad_norm`` and
     ``lr`` as 0-dim tensors on the device."""
@@ -93,7 +94,7 @@ def restore_state(ckpt: Checkpointer, model, params, step=None):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="mamba2-2.7b")
+    ap.add_argument("--arch", default="granite-3-2b")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
@@ -109,7 +110,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "encdec":
+        raise ValueError(
+            f"{cfg.name} trains on audio frames, and the token pipeline "
+            "gives no 'frames'")
     if args.conv_tile is not None:
+        if cfg.ssm is None:
+            ap.error(f"--conv-tile: {cfg.name} has no causal conv")
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, pallas_conv=True, conv_tile=args.conv_tile))
     dev = resolve_device(args.device)

@@ -1,4 +1,5 @@
-"""The port's model stack: the SSM family (Mamba2) and the Zamba2 hybrid,
+"""The port's model stack: the SSM family (Mamba2), the Zamba2 hybrid, the
+decoder-only transformers (dense, MoE, VLM) and the encoder-decoder,
 served and trained."""
 
 from .model_api import Model, count_params, get_model  # noqa: F401

@@ -1,19 +1,17 @@
-"""Model building blocks the SSM family and the Zamba2 hybrid serve and
-train with: norms, rope, attention with its ring KV cache, the gated MLP,
-the token embedding and unembedding, the chunked cross-entropy, and
+"""Model building blocks: norms, rope, attention with its ring KV cache
+and cross-attention, the gated and the gelu MLP, the sort-based capacity
+MoE, the token embedding and unembedding, the chunked cross-entropy, and
 parameter init from spec trees.
 
-The part of the JAX package's ``models/layers.py`` that Mamba2 and Zamba2
-reach, with the same names and numerics: norms in f32, stored in the
-input's dtype; rope's angles in f32; attention scores and the PV product
-summed in f32 from compute-dtype inputs, masked with the finite
-:data:`NEG_INF`, the probabilities rounded to the compute dtype before
-the PV product; the embedding and the logits in the compute dtype; the
-loss in f32.  Attention is plain torch (einsums as the reference writes
-them), not a fused attention call: those neither keep the finite mask nor
-round the probabilities where the reference does.  Cross-attention and
-MoE come with the families that use them (``ROADMAP.md`` queue A, item
-7c).
+The JAX package's ``models/layers.py`` with the same names and numerics:
+norms in f32, stored in the input's dtype; rope's angles in f32;
+attention scores and the PV product summed in f32 from compute-dtype
+inputs, masked with the finite :data:`NEG_INF`, the probabilities rounded
+to the compute dtype before the PV product; the MoE router's
+probabilities in f32; the embedding and the logits in the compute dtype;
+the loss in f32.  Attention is plain torch (einsums as the reference
+writes them), not a fused attention call: those neither keep the finite
+mask nor round the probabilities where the reference does.
 
 Every block is a function of ``(cfg, p, x, ...)`` with ``p`` a mapping
 from the reference's leaf names to tensors.
@@ -21,9 +19,12 @@ from the reference's leaf names to tensors.
 
 from __future__ import annotations
 
+import math
 from typing import Any, Mapping, Optional
 
 import torch
+import torch.nn.functional as F
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.sharding import ParamSpec
@@ -51,6 +52,7 @@ __all__ = [
     "pad_q_heads",
     "rope",
     "silu",
+    "SpecModule",
     "rms_norm",
     "gated_rms_norm",
     "to_stored_kv",
@@ -58,14 +60,24 @@ __all__ = [
     "embed_tokens",
     "unembed",
     "flatten_tree",
-    "init_from_specs",
-    "iter_init",
+    "gelu",
+    "init_params_",
+    "load_tree",
+    "moe_block",
+    "moe_param_specs",
 ]
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)`` in x's dtype, the form of ``jax.nn.silu``."""
     return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of gelu, ``jax.nn.gelu``'s default
+    (``approximate=True``); torch's default is the exact erf form, up to
+    4e-4 away at |x| = 3."""
+    return F.gelu(x, approximate="tanh")
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -185,13 +197,18 @@ def chunked_attention(
 ):
     """Query-chunked attention (memory: O(q_chunk · T) scores).  Under
     autograd each query chunk runs under ``torch.utils.checkpoint`` (the
-    reference scans the chunks under ``jax.checkpoint``)."""
+    reference scans the chunks under ``jax.checkpoint``).  A length that
+    is not a multiple of ``q_chunk`` ends with a shorter chunk, where the
+    reference takes the whole length as one chunk: each query's scores
+    are the same sums either way, and a prompt of 2047 tokens would
+    otherwise hold its whole (B, H, 2047, 2047) f32 scores (8 GiB at
+    llama3-405b's 128 heads, batch 4)."""
     b, s, h, d = q.shape
     if pos_q.ndim == 1:
         pos_q = pos_q[None].expand(b, s)
     if pos_k.ndim == 1:
         pos_k = pos_k[None].expand(b, k.shape[1])
-    if s <= q_chunk or s % q_chunk != 0:
+    if s <= q_chunk:
         return _attn_chunk(q, k, v, pos_q, pos_k, causal, window, dtype)
     grad = torch.is_grad_enabled()
     outs = []
@@ -257,49 +274,60 @@ def attention_block(
     x_kv: Optional[torch.Tensor] = None,
     cross: bool = False,
 ):
-    """Self-attention sublayer.  Returns ``(out, cache)``.
+    """Full attention sublayer.  Returns ``(out, cache)``.
 
     ``pos`` is the first token's position (an int or 0-dim tensor) or the
-    tokens' positions (B, S).  KV cache protocol (ring buffer):
+    tokens' positions (B, S).  Self-attention KV cache protocol (ring
+    buffer):
       cache = {'k': (B,Tc,Hs,D), 'v': ..., 'positions': (Tc,) int32,
                'pos': 0-dim int32}
     updated in place, where the reference returns a new cache.  Unwritten
     slots carry :data:`INVALID_POS` in 'positions' so the causal mask
     rejects them; the write slot is ``pos % Tc`` (clamped as the
-    reference's ``dynamic_update_slice``).  Cross-attention (``cross=True``
-    or ``x_kv``) comes with the encoder-decoder: ``ROADMAP.md`` queue A,
-    item 7c."""
-    if cross or x_kv is not None:
-        raise NotImplementedError(
-            "cross-attention is not in the port yet: ROADMAP.md queue A, "
-            "item 7c (the transformer families)"
-        )
+    reference's ``dynamic_update_slice``).
+
+    Cross-attention (``cross=True`` or ``x_kv`` given) is non-causal and
+    takes no rope: keys and values come from ``x_kv`` (train, prefill) or
+    from a precomputed cache ``{'k', 'v'}`` (decode, ``x_kv`` None), at
+    positions ``arange(F)``.  A cache given with ``x_kv`` gets the new
+    keys and values (its entries replaced)."""
     cdt = cfg.compute_dtype
+    cross = cross or (x_kv is not None)
     s = x.shape[1]
     pos = torch.as_tensor(pos, device=x.device)
     pos_q = pos if pos.ndim else pos + torch.arange(s, device=x.device)
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cdt))
     if "bq" in p:
         q = q + p["bq"].to(cdt)
-    if use_rope:
+    rotate = use_rope and not cross
+    if rotate:
         q = rope(q, pos_q, cfg.rope_theta)
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cdt))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cdt))
-    if "bk" in p:
-        k = k + p["bk"].to(cdt)
-        v = v + p["bv"].to(cdt)
-    if use_rope:
-        k = rope(k, pos_q, cfg.rope_theta)
-    k_st, v_st = to_stored_kv(k, cfg), to_stored_kv(v, cfg)
-    if cache is not None:
-        pos_k = _ring_write(cache, k_st, v_st)
+    if cross and cache is not None and x_kv is None:
         k_st, v_st = cache["k"], cache["v"]
+        pos_k = torch.arange(k_st.shape[1], device=x.device)
     else:
-        pos_k = pos_q
+        src = x_kv if cross else x
+        k = torch.einsum("bsd,dhk->bshk", src, p["wk"].to(cdt))
+        v = torch.einsum("bsd,dhk->bshk", src, p["wv"].to(cdt))
+        if "bk" in p:
+            k = k + p["bk"].to(cdt)
+            v = v + p["bv"].to(cdt)
+        if rotate:
+            k = rope(k, pos_q, cfg.rope_theta)
+        k_st, v_st = to_stored_kv(k, cfg), to_stored_kv(v, cfg)
+        if cross:
+            if cache is not None:
+                cache["k"], cache["v"] = k_st, v_st
+            pos_k = torch.arange(k_st.shape[1], device=x.device)
+        elif cache is not None:
+            pos_k = _ring_write(cache, k_st, v_st)
+            k_st, v_st = cache["k"], cache["v"]
+        else:
+            pos_k = pos_q
     q = pad_q_heads(q, cfg)
     out = chunked_attention(
-        q, k_st, v_st, pos_q, pos_k, causal=causal, window=window,
-        q_chunk=cfg.q_chunk, dtype=cdt,
+        q, k_st, v_st, pos_q, pos_k, causal=causal and not cross,
+        window=window, q_chunk=cfg.q_chunk, dtype=cdt,
     )
     wo = pad_q_heads(p["wo"].to(cdt), cfg, axis=0)
     y = torch.einsum("bshk,hkd->bsd", out, wo)
@@ -333,6 +361,115 @@ def mlp_block(cfg, p, x, act=silu):
     else:
         h = act(up)
     return torch.matmul(h, p["w_down"].to(cdt))
+
+
+# ---------------------------------------------------------------------------
+# Mixture of experts (sort-based capacity dispatch).
+# ---------------------------------------------------------------------------
+
+def moe_param_specs(cfg) -> dict[str, ParamSpec]:
+    m = cfg.moe
+    d, ff, e = cfg.d_model, cfg.d_ff, m.n_experts
+    pd = cfg.param_dtype
+    if m.expert_parallel:
+        ax = ("expert", "", "")
+        ax_t = ("expert", "", "")
+    else:
+        ax = ("", "fsdp", "tensor")
+        ax_t = ("", "tensor", "fsdp")
+    specs = {
+        "router": ParamSpec((d, e), pd, ("fsdp", "")),
+        "w1": ParamSpec((e, d, ff), pd, ax),
+        "w3": ParamSpec((e, d, ff), pd, ax),
+        "w2": ParamSpec((e, ff, d), pd, ax_t),
+    }
+    if m.dense_residual:
+        specs["dense"] = mlp_param_specs(cfg)
+    return specs
+
+
+def top_k(probs: torch.Tensor, k: int):
+    """``(values, indices)`` of the ``k`` largest entries of each row,
+    the lower index first among equal values, as ``lax.top_k`` orders
+    them (``torch.topk`` does not promise an order on ties): a stable
+    descending sort."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _moe_route(cfg, p, xf, record: Optional[list] = None):
+    """Sort-based capacity routing for one token group.  xf: (n, d).
+    Returns (dispatch buffer (E, cap, d), slot_of (n, k), gates (n, k)),
+    and appends ``{"eidx": (n, k) experts, "dropped": (n, k) bool}`` to
+    ``record`` where one is given.
+
+    The reference's steps: f32 router probabilities, top-k (lower expert
+    first on ties), gates renormalised over the k picks; assignments
+    sorted by expert (stable), ranked within their expert by
+    ``searchsorted(side="left")``; an assignment ranked at or beyond the
+    capacity ``max(ceil(n·k/e·cf), 4)`` goes to the overflow row
+    ``e·cap``, which is zero in the combine (the token keeps its gate
+    weights as renormalised before the drop)."""
+    m = cfg.moe
+    cdt = cfg.compute_dtype
+    n, d = xf.shape
+    e, k = m.n_experts, m.top_k
+    logits = torch.matmul(xf, p["router"].to(cdt)).float()
+    probs = torch.softmax(logits, dim=-1)
+    gates, eidx = top_k(probs, k)  # (n, k)
+    gates = gates / torch.sum(gates, dim=-1, keepdim=True)
+
+    cap = max(int(math.ceil(n * k / e * m.capacity_factor)), 4)
+    flat_e = eidx.reshape(-1)  # (n*k,)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    first = torch.searchsorted(sorted_e, sorted_e, side="left")
+    rank = torch.arange(n * k, device=xf.device) - first
+    slot = torch.where(rank < cap, sorted_e * cap + rank, e * cap)
+    token_of = order // k
+    # Only the overflow row takes several writes; it is cut off below.
+    disp = xf.new_zeros((e * cap + 1, d), dtype=cdt)
+    disp[slot] = xf[token_of].to(cdt)
+    slot_of = torch.empty_like(slot)
+    slot_of[order] = slot
+    slot_of = slot_of.reshape(n, k)
+    if record is not None:
+        record.append({"eidx": eidx, "dropped": slot_of == e * cap})
+    return disp[: e * cap].reshape(e, cap, d), slot_of, gates
+
+
+def _moe_combine(cfg, y, slot_of, gates):
+    """y: (E, cap, d) expert outputs; gather back per token, the overflow
+    row reading zeros."""
+    cdt = cfg.compute_dtype
+    e, cap, d = y.shape
+    yf = torch.cat([y.reshape(e * cap, d), y.new_zeros((1, d))])
+    picked = yf[slot_of]  # (n, k, d)
+    return torch.sum(picked * gates.to(cdt)[..., None], dim=1)
+
+
+def moe_block(cfg, p, x, record: Optional[list] = None):
+    """Top-k capacity MoE.  Tokens are grouped by the data-parallel
+    groups (``cfg.dp``; one group outside a mesh), and each group routes
+    and dispatches on its own (its routes appended to ``record``, see
+    :func:`_moe_route`); the experts run as one batched product over
+    every group, then each group gathers its tokens back.  With
+    ``dense_residual`` (arctic) a gated MLP runs beside the experts."""
+    m = cfg.moe
+    cdt = cfg.compute_dtype
+    b, s, d = x.shape
+    g = cfg.dp if (cfg.dp > 1 and b % cfg.dp == 0) else 1
+    xg = x.reshape(g, (b // g) * s, d)
+    routed = [_moe_route(cfg, p, xf, record) for xf in xg]
+    h = torch.stack([r[0] for r in routed])  # (G, E, cap, d)
+    a1 = torch.einsum("gecd,edf->gecf", h, p["w1"].to(cdt))
+    a3 = torch.einsum("gecd,edf->gecf", h, p["w3"].to(cdt))
+    y = torch.einsum("gecf,efd->gecd", silu(a1) * a3, p["w2"].to(cdt))
+    out = torch.stack([_moe_combine(cfg, yi, r[1], r[2])
+                       for yi, r in zip(y, routed)]).reshape(b, s, d)
+    if m.dense_residual:
+        out = out + mlp_block(cfg, p["dense"], x)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -454,27 +591,93 @@ def flatten_tree(tree, prefix: str = "") -> list[tuple[str, Any]]:
     return out
 
 
-def iter_init(specs, generator: torch.Generator, scale: float = 0.02,
-              device=None):
-    """``(dotted path, tensor)`` leaf by leaf, the values of
-    :func:`init_from_specs`; a caller that stores each leaf as it comes
-    holds one leaf's draw at a time."""
-    device = generator.device if device is None else torch.device(device)
+# ---------------------------------------------------------------------------
+# Modules laid out as the reference's parameter trees.
+# ---------------------------------------------------------------------------
+
+class SpecModule(nn.Module):
+    """Parameters laid out as a spec tree: each :class:`ParamSpec` leaf is
+    a parameter (made empty and trainable; serving runs under
+    ``inference_mode``), each dict a child module of the same kind."""
+
+    def __init__(self, specs: dict, device=None):
+        super().__init__()
+        for name, spec in specs.items():
+            if isinstance(spec, ParamSpec):
+                self.register_parameter(name, nn.Parameter(
+                    torch.empty(spec.shape, dtype=spec.dtype, device=device)))
+            else:
+                self.add_module(name, SpecModule(spec, device))
+
+    def tensors(self) -> dict:
+        """The tree of tensors the blocks take: ``{leaf: tensor}``, and a
+        nested dict for each child."""
+        out = dict(self.named_parameters(recurse=False))
+        out.update((k, m.tensors()) for k, m in self.named_children())
+        return out
+
+
+def _targets(module: nn.Module, path: str) -> list:
+    """The parameters of ``module`` behind the reference tree's leaf
+    ``path``: one, or for a leaf of a stacked group (an ``nn.ModuleList``
+    attribute, the reference's (L, ...) leaves) one per layer."""
+    group, _, rest = path.partition(".")
+    sub = getattr(module, group, None)
+    if isinstance(sub, nn.ModuleList):
+        return [blk.get_parameter(rest) for blk in sub]
+    return [module.get_parameter(path)]
+
+
+def load_tree(module: nn.Module, leaves, specs) -> nn.Module:
+    """Fill ``module``'s parameters from ``(dotted path, tensor)`` pairs of
+    the reference's tree ``specs`` (a stacked group's leaves (L, ...) split
+    over its layers), casting to each parameter's dtype.  Every leaf must
+    come exactly once."""
+    seen = set()
+    with torch.no_grad():
+        for path, value in leaves:
+            try:
+                dst = _targets(module, path)
+            except AttributeError as e:
+                raise KeyError(f"unknown parameter {path!r}") from e
+            src = value if len(dst) > 1 or dst[0].ndim < value.ndim else [value]
+            if len(dst) != len(src):
+                raise ValueError(f"{path}: {len(src)} layers stacked, the "
+                                 f"model has {len(dst)}")
+            for t, v in zip(dst, src):
+                t.copy_(v)
+            seen.add(path)
+    want = {k for k, _ in flatten_tree(specs)}
+    if seen != want:
+        raise KeyError(
+            f"missing {sorted(want - seen)}, unexpected {sorted(seen - want)}"
+        )
+    return module
+
+
+@torch.no_grad()
+def init_params_(module: nn.Module, specs, generator: torch.Generator,
+                 scale: float = 0.02, piece: int = 1 << 26) -> nn.Module:
+    """Fill ``module``'s parameters by the reference's ``init_from_specs``
+    rule on its tree ``specs`` (ones where the *stacked* leaf is 1-D or
+    ends in 1, else ``N(0, 1)·scale``), leaf by leaf in flatten order
+    and layer by layer within a stacked leaf.  Each draw is made in f32
+    pieces of at most ``piece`` elements along the leading dims and cast
+    into place, so no leaf's f32 draw is held whole: arctic's expert
+    weights are 8.9 GB of bf16 a layer.  A torch generator draws other
+    numbers than a jax key; the tests carry the reference's values across
+    with ``convert.params_from_reference``."""
     for path, spec in flatten_tree(specs):
-        if len(spec.shape) <= 1 or spec.shape[-1] == 1:
-            yield path, torch.ones(spec.shape, dtype=spec.dtype, device=device)
-        else:
-            v = torch.randn(spec.shape, generator=generator,
-                            dtype=torch.float32, device=device)
-            yield path, v.mul_(scale).to(spec.dtype)
-
-
-def init_from_specs(specs, generator: torch.Generator, scale: float = 0.02,
-                    device=None) -> dict[str, torch.Tensor]:
-    """``{dotted path: tensor}`` for a spec tree: ones for 1-D leaves (and
-    leaves whose last dim is 1), else ``N(0, 1)·scale`` drawn in f32 from
-    ``generator`` leaf by leaf in flatten order and cast to the leaf's
-    dtype — the reference's ``init_from_specs``.  A torch generator draws
-    other numbers than a jax key; the tests carry the reference's values
-    across with ``convert.params_from_reference``."""
-    return dict(iter_init(specs, generator, scale, device))
+        ones = len(spec.shape) <= 1 or spec.shape[-1] == 1
+        for t in _targets(module, path):
+            if ones:
+                t.fill_(1)
+                continue
+            flat = t.view(-1, t.shape[-1])
+            rows = max(1, piece // t.shape[-1])
+            for i in range(0, flat.shape[0], rows):
+                part = flat[i:i + rows]
+                v = torch.randn(part.shape, generator=generator,
+                                dtype=torch.float32, device=t.device)
+                part.copy_(v.mul_(scale))
+    return module

@@ -7,36 +7,87 @@
     logits, cache = model.decode_step(params, cache, token, pos)
 
 plus ``cache_specs`` / ``init_cache``.  ``params`` is the family's module
-(:class:`~repro_torch.models.ssm.SSMModel`) where the reference passes a
-dict tree.  The model runs on ``device``: ``None`` means the card, and
-``"cpu"`` runs the kernels' plain versions (the tests); without CUDA and
-without ``device="cpu"``, ``init``, ``init_cache``, ``loss``, ``prefill``
-and ``decode_step`` raise.  Parameters are trainable: ``loss`` runs under
-autograd; prefill and decode run under ``torch.inference_mode()`` and
-update the cache in place.
+(:class:`~repro_torch.models.ssm.SSMModel`,
+:class:`~repro_torch.models.transformer.LMModel`,
+:class:`~repro_torch.models.encdec.EncDecModel`) where the reference
+passes a dict tree.  The model runs on ``device``: ``None`` means the
+card, and ``"cpu"`` runs the kernels' plain versions (the tests);
+without CUDA and without ``device="cpu"``, :func:`get_model` raises.
+Parameters are trainable: ``loss`` runs under autograd; prefill and
+decode run under ``torch.inference_mode()`` and update the cache in
+place.
 
-The SSM family and the Zamba2 hybrid (``ssm`` and ``hybrid``) run
-through :mod:`~repro_torch.models.ssm`; the transformer families raise
-``NotImplementedError`` naming their ``ROADMAP.md`` item.
+Families: ``ssm`` and ``hybrid`` (Mamba2, Zamba2) through
+:mod:`~repro_torch.models.ssm`; ``dense``, ``moe``, ``vlm`` and
+``hybrid-attn`` through :mod:`~repro_torch.models.transformer` (a VLM's
+batch may carry ``prefix_embeds``); ``encdec`` through
+:mod:`~repro_torch.models.encdec` (its batch carries ``frames``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from math import prod
-from typing import Any
+from typing import Any, Callable, NamedTuple
 
 import torch
 
 from .. import resolve_device
 from ..configs.base import ModelCfg
-from . import ssm
-from .layers import flatten_tree, iter_init
+from . import encdec, ssm, transformer
+from .layers import flatten_tree, init_params_
 
-__all__ = ["Model", "get_model", "count_params"]
+__all__ = ["Model", "get_model", "count_params", "family"]
 
-_LATER = {f: "item 7c (the transformer families)"
-          for f in ("dense", "moe", "vlm", "hybrid-attn", "encdec")}
+
+class Family(NamedTuple):
+    specs: Callable          # cfg -> spec tree
+    module: type             # (cfg, device) -> the parameters' nn.Module
+    loss: Callable           # (cfg, params, batch) -> loss
+    prefill: Callable        # (cfg, params, batch, cache) -> (logits, cache)
+    decode: Callable         # (cfg, params, cache, token, pos)
+    cache_specs: Callable    # (cfg, batch, max_len) -> spec tree
+    init_cache: Callable     # (cfg, batch, max_len, device) -> cache
+
+
+def _ssm_prefill(cfg, params, batch, cache):
+    return ssm.ssm_prefill(cfg, params, batch["tokens"], cache)
+
+
+def _lm_prefill(cfg, params, batch, cache):
+    return transformer.lm_prefill(cfg, params, batch["tokens"], cache,
+                                  prefix_embeds=batch.get("prefix_embeds"))
+
+
+_SSM = Family(ssm.ssm_param_specs, ssm.SSMModel, ssm.ssm_loss, _ssm_prefill,
+              ssm.ssm_decode_step, ssm.ssm_cache_specs, ssm.ssm_init_cache)
+_LM = Family(
+    transformer.lm_param_specs, transformer.LMModel, transformer.lm_loss,
+    _lm_prefill, transformer.lm_decode_step,
+    lambda cfg, b, n: transformer.lm_cache_specs(cfg, b, n, ring=False),
+    lambda cfg, b, n, device: transformer.lm_init_cache(cfg, b, n,
+                                                        device=device),
+)
+_ENCDEC = Family(
+    encdec.encdec_param_specs, encdec.EncDecModel, encdec.encdec_loss,
+    encdec.encdec_prefill, encdec.encdec_decode_step,
+    encdec.encdec_cache_specs, encdec.encdec_init_cache,
+)
+_FAMILIES = {"ssm": _SSM, "hybrid": _SSM, "dense": _LM, "moe": _LM,
+             "vlm": _LM, "hybrid-attn": _LM, "encdec": _ENCDEC}
+
+
+def family(cfg: ModelCfg) -> Family:
+    """The functions and module class of ``cfg``'s family."""
+    try:
+        return _FAMILIES[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown family {cfg.family}") from None
+
+
+# Batch entries that are embeddings (the VLM prefix, the audio frames):
+# carried to the device in the compute dtype.
+_EMBEDDINGS = ("prefix_embeds", "frames")
 
 
 @dataclass
@@ -44,65 +95,75 @@ class Model:
     cfg: ModelCfg
     device: Any = None
 
-    def _dev(self) -> torch.device:
-        return resolve_device(self.device)
+    def __post_init__(self):
+        self.device = resolve_device(self.device)
+        self.fam = family(self.cfg)
 
     def param_specs(self):
-        return ssm.ssm_param_specs(self.cfg)
+        return self.fam.specs(self.cfg)
 
-    def init(self, seed: int = 0) -> ssm.SSMModel:
+    def init(self, seed: int = 0) -> torch.nn.Module:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
-        on the model's device, as the reference's ``init_from_specs`` lays
-        them out (ones on 1-D leaves, N(0, 0.02²) elsewhere)."""
-        dev = self._dev()
-        gen = torch.Generator(device=dev)
+        on the model's device, by the reference's ``init_from_specs`` rule
+        (ones on 1-D leaves of its stacked tree, N(0, 0.02²) elsewhere),
+        in pieces into place (:func:`~.layers.init_params_`)."""
+        gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        model = ssm.SSMModel(self.cfg, device=dev)
-        return model.load_flat(iter_init(self.param_specs(), gen))
+        model = self.fam.module(self.cfg, device=self.device)
+        return init_params_(model, self.param_specs(), gen)
+
+    def _batch(self, batch) -> dict:
+        """``batch``'s tensors or numpy arrays on the model's device:
+        token ids as int64, embeddings in the compute dtype."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.as_tensor(v).to(self.device)
+            if k in ("tokens", "targets"):
+                t = t.long()
+            elif k in _EMBEDDINGS:
+                t = t.to(self.cfg.compute_dtype)
+            out[k] = t
+        return out
 
     def loss(self, params, batch):
         """The training loss of ``batch`` (``tokens``, ``targets``,
-        ``mask``: tensors or numpy arrays, moved to the model's device)."""
-        dev = self._dev()
-        b = {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
-        for k in ("tokens", "targets"):
-            b[k] = b[k].long()
-        return ssm.ssm_loss(self.cfg, params, b)
+        ``mask``, and ``prefix_embeds`` or ``frames`` where the family
+        takes them)."""
+        return self.fam.loss(self.cfg, params, self._batch(batch))
 
     def prefill(self, params, batch, cache):
-        dev = self._dev()
         with torch.inference_mode():
-            tokens = torch.as_tensor(batch["tokens"]).to(dev)
-            return ssm.ssm_prefill(self.cfg, params, tokens, cache)
+            return self.fam.prefill(self.cfg, params, self._batch(batch),
+                                    cache)
 
     def decode_step(self, params, cache, token, pos):
-        dev = self._dev()
         with torch.inference_mode():
-            token = torch.as_tensor(token).to(dev)
-            return ssm.ssm_decode_step(self.cfg, params, cache, token, pos)
+            token = torch.as_tensor(token).to(self.device)
+            return self.fam.decode(self.cfg, params, cache, token, pos)
 
     def cache_specs(self, batch: int, max_len: int):
-        return ssm.ssm_cache_specs(self.cfg, batch, max_len)
+        return self.fam.cache_specs(self.cfg, batch, max_len)
 
     def init_cache(self, batch: int, max_len: int):
-        return ssm.ssm_init_cache(self.cfg, batch, max_len, device=self._dev())
+        return self.fam.init_cache(self.cfg, batch, max_len,
+                                   device=self.device)
 
 
 def get_model(cfg: ModelCfg, device=None) -> Model:
-    fam = cfg.family
-    if fam in _LATER:
-        raise NotImplementedError(
-            f"the {fam} family is not in the port yet: ROADMAP.md queue A, "
-            f"{_LATER[fam]}"
-        )
-    if fam not in ("ssm", "hybrid"):
-        raise ValueError(f"unknown family {fam}")
+    """The model of ``cfg``'s family on ``device`` (``None``: the card;
+    raises without CUDA unless ``device="cpu"``)."""
     return Model(cfg, device)
 
 
 def count_params(cfg: ModelCfg, active_only: bool = False) -> int:
     """Total parameters N (raw dims); the hybrid's shared block counts
-    once, however many times it is applied.  Neither family has experts,
-    so ``active_only`` counts the same."""
-    specs = get_model(cfg).param_specs()
-    return int(sum(prod(s.shape) for _, s in flatten_tree(specs)))
+    once, however many times it is applied.  ``active_only`` counts the
+    expert weights (``w1``, ``w2``, ``w3``) at ``top_k / n_experts``, as
+    the reference does; arctic's dense residual MLP counts in full."""
+    leaves = flatten_tree(family(cfg).specs(cfg))
+    total = sum(prod(s.shape) for _, s in leaves)
+    if active_only and cfg.moe is not None:
+        expert = sum(prod(s.shape) for path, s in leaves
+                     if path.rsplit(".", 1)[-1] in ("w1", "w2", "w3"))
+        total = total - expert + expert * cfg.moe.top_k // cfg.moe.n_experts
+    return int(total)

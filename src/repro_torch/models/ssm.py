@@ -52,13 +52,14 @@ from ..kernels.conv1d import causal_conv1d
 from ..parallel.sharding import ParamSpec
 from .layers import (
     INVALID_POS,
+    SpecModule,
     attention_block,
     attention_param_specs,
     chunked_xent,
     embed_param_specs,
     embed_tokens,
-    flatten_tree,
     gated_rms_norm,
+    load_tree,
     mlp_block,
     mlp_param_specs,
     rms_norm,
@@ -238,22 +239,7 @@ def mamba_block(cfg, p, x, ssm_state=None, conv_state=None):
 # Modules.
 # ---------------------------------------------------------------------------
 
-class _Leaves(nn.Module):
-    """A module whose parameters are one spec dict's leaves, made empty
-    and trainable (serving runs under ``inference_mode``)."""
-
-    def __init__(self, specs: dict, device=None):
-        super().__init__()
-        for name, spec in specs.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(spec.shape, dtype=spec.dtype, device=device),
-            ))
-
-    def tensors(self) -> dict[str, torch.Tensor]:
-        return dict(self.named_parameters(recurse=False))
-
-
-class MambaBlock(_Leaves):
+class MambaBlock(SpecModule):
     """One Mamba2 layer's parameters; ``forward`` is :func:`mamba_block`
     on an already normalized input."""
 
@@ -276,8 +262,8 @@ class SharedAttn(nn.Module):
         for name in ("ln1", "ln2"):
             self.register_parameter(name, nn.Parameter(torch.empty(
                 (cfg.d_model,), dtype=cfg.param_dtype, device=device)))
-        self.attn = _Leaves(attention_param_specs(cfg), device)
-        self.ffn = _Leaves(mlp_param_specs(cfg), device)
+        self.attn = SpecModule(attention_param_specs(cfg), device)
+        self.ffn = SpecModule(mlp_param_specs(cfg), device)
 
     def forward(self, x, pos, cache=None):
         """``x + attn(norm(x))``, then ``+ mlp(norm(·))``; returns ``(x,
@@ -300,7 +286,7 @@ class SSMModel(nn.Module):
     def __init__(self, cfg, device=None):
         super().__init__()
         self.cfg = cfg
-        self.embed = _Leaves(embed_param_specs(cfg), device)
+        self.embed = SpecModule(embed_param_specs(cfg), device)
         self.layers = nn.ModuleList(
             [MambaBlock(cfg, device) for _ in range(cfg.n_layers)]
         )
@@ -311,31 +297,8 @@ class SSMModel(nn.Module):
         """Fill the parameters from ``(dotted path, tensor)`` pairs of the
         reference's tree (``embed.<leaf>``, ``shared_attn.<...>``, and
         ``layers.<leaf>`` stacked (L, ...) over the layers), casting to
-        each parameter's dtype.  Every leaf must come exactly once."""
-        seen = set()
-        with torch.no_grad():
-            for path, value in leaves:
-                group, leaf = path.split(".", 1)
-                if group == "layers":
-                    if value.shape[0] != len(self.layers):
-                        raise ValueError(
-                            f"{path}: {value.shape[0]} layers stacked, the "
-                            f"model has {len(self.layers)}"
-                        )
-                    for blk, v in zip(self.layers, value):
-                        getattr(blk, leaf).copy_(v)
-                elif group in ("embed", "shared_attn") and hasattr(self,
-                                                                    group):
-                    self.get_parameter(path).copy_(value)
-                else:
-                    raise KeyError(f"unknown parameter group in {path!r}")
-                seen.add(path)
-        want = {k for k, _ in flatten_tree(ssm_param_specs(self.cfg))}
-        if seen != want:
-            raise KeyError(
-                f"missing {sorted(want - seen)}, unexpected {sorted(seen - want)}"
-            )
-        return self
+        each parameter's dtype (:func:`~.layers.load_tree`)."""
+        return load_tree(self, leaves, ssm_param_specs(self.cfg))
 
 
 # ---------------------------------------------------------------------------

@@ -146,18 +146,22 @@ def test_config_dims_match_reference(kind):
             64, 2560, 5120, 128, 80, 4, 50304)
 
 
-@pytest.mark.parametrize("arch,item", [
+@pytest.mark.parametrize("arch,item", [  # item: ROADMAP.md queue A's
     ("internvl2-2b", "item 7c"), ("granite-3-2b", "item 7c"),
     ("whisper-large-v3", "item 7c"),
 ])
 def test_unported_architectures_name_their_roadmap_item(arch, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tconfigs.get_config(arch)
-    dense = dataclasses.replace(tconfigs.get_smoke_config(ARCH),
-                                family="dense")
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        t_get_model(dense)
-    # Training (item 7a) is ported: the loss is a finite f32 scalar.
+    """The architectures of ``ROADMAP.md`` queue A's ``item`` (the
+    transformer families) are in the port: each config is the
+    reference's, the ``dense`` family gets the transformer's module, and
+    the Mamba2 loss is still a finite f32 scalar."""
+    tc, jc = tconfigs.get_config(arch), jconfigs.get_config(arch)
+    assert (tc.name, tc.family, tc.n_layers, tc.d_model, tc.vocab_padded) == (
+        jc.name, jc.family, jc.n_layers, jc.d_model, jc.vocab_padded)
+    assert t_count_params(tc) == j_count_params(jc)
+    dense = dataclasses.replace(tconfigs.get_smoke_config("granite-3-2b"),
+                                n_layers=1)
+    assert t_get_model(dense, device="cpu").fam.module.__name__ == "LMModel"
     _, tc = _cfgs("float32")
     model = t_get_model(tc, device="cpu")
     toks = np.random.default_rng(1).integers(0, tc.vocab, (B, S + 1))

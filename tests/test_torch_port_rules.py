@@ -62,6 +62,9 @@ def test_the_scan_sees_the_port():
                    "optim/optimizer.py", "optim/compression.py",
                    "checkpoint/checkpointer.py",
                    "runtime/fault_tolerance.py", "configs/zamba2_2p7b.py",
+                   "models/transformer.py", "models/encdec.py",
+                   "configs/granite_3_2b.py", "configs/whisper_large_v3.py",
+                   "configs/mixtral_8x22b.py", "configs/arctic_480b.py",
                    "examples/quickstart.py", "examples/stencil_pipeline.py",
                    "examples/rk2_damped_jacobi.py",
                    "examples/multigrid_vcycle.py"):
@@ -80,6 +83,8 @@ def _no_cuda():
     "model_init_cache", "model_prefill", "model_decode_step", "serve",
     "params_from_reference", "model_loss", "train_main",
     "opt_state_from_reference", "hybrid_model_init", "hybrid_prefill",
+    "get_model", "lm_prefill", "lm_serve", "encdec_prefill", "encdec_serve",
+    "serve_main",
 ])
 def test_entry_points_default_to_the_card(entry):
     _no_cuda()
@@ -88,6 +93,7 @@ def test_entry_points_default_to_the_card(entry):
     from repro_torch.core.cache_fitting import star_stencil
     from repro_torch.kernels import stencil as st
     from repro_torch.kernels.conv1d import causal_conv1d
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import main as train_main
     from repro_torch.models import get_model
@@ -141,6 +147,24 @@ def test_entry_points_default_to_the_card(entry):
         "hybrid_model_init": lambda: get_model(hyb).init(0),
         "hybrid_prefill": lambda: get_model(hyb).prefill(
             h_params, {"tokens": toks}, h_cache),
+    })
+    # The transformer families, likewise (get_model itself raises).
+    lm, ed = get_smoke_config("granite-3-2b"), get_smoke_config(
+        "whisper-large-v3")
+    lm_cpu, ed_cpu = get_model(lm, device="cpu"), get_model(ed, device="cpu")
+    lm_params, ed_params = lm_cpu.init(0), ed_cpu.init(0)
+    frames = np.zeros((1, ed.frontend_len, ed.d_model), np.float32)
+    calls.update({
+        "get_model": lambda: get_model(lm),
+        "lm_prefill": lambda: get_model(lm).prefill(
+            lm_params, {"tokens": toks}, lm_cpu.init_cache(1, 8)),
+        "lm_serve": lambda: serve(lm, lm_params, toks, 2),
+        "encdec_prefill": lambda: get_model(ed).prefill(
+            ed_params, {"tokens": toks, "frames": frames},
+            ed_cpu.init_cache(1, 8)),
+        "encdec_serve": lambda: serve(ed, ed_params, toks, 2, frames=frames),
+        "serve_main": lambda: serve_main(["--smoke", "--arch",
+                                          "mixtral-8x22b"]),
     })
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

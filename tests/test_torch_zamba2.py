@@ -441,12 +441,22 @@ def test_attention_without_a_cache_matches_reference():
 
 
 def test_cross_attention_names_its_roadmap_item():
-    _, tc = _cfgs("float32")
-    p = {k: torch.tensor(a) for k, a in _attn_params(tc).items()}
-    x = torch.zeros((1, 2, tc.d_model))
-    for kw in (dict(cross=True), dict(x_kv=x)):
-        with pytest.raises(NotImplementedError, match="item 7c"):
-            tlayers.attention_block(tc, p, x, 0, **kw)
+    """Cross-attention (``ROADMAP.md`` queue A, item 7c) is in the port:
+    ``cross=True`` with ``x_kv``, and ``x_kv`` alone, equal the
+    reference's (keys and values from ``x_kv``, no rope, non-causal)."""
+    jc, tc = _cfgs("float32")
+    p = _attn_params(tc)
+    rng = np.random.default_rng(12)
+    x = rng.standard_normal((1, 2, tc.d_model)).astype(np.float32)
+    kv = rng.standard_normal((1, 5, tc.d_model)).astype(np.float32)
+    want, _ = jlayers.attention_block(
+        jc, jax.tree.map(jnp.asarray, p), jnp.asarray(x), jnp.int32(0),
+        x_kv=jnp.asarray(kv), cross=True)
+    for kw in (dict(cross=True), {}):
+        got, _ = tlayers.attention_block(
+            tc, {k: torch.tensor(a) for k, a in p.items()}, torch.tensor(x),
+            0, x_kv=torch.tensor(kv), **kw)
+        _close(got.numpy(), np.asarray(want), "float32", str(kw))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -475,6 +485,26 @@ def test_params_from_reference_round_trip(run):
     assert any(p.startswith("shared_attn.attn.") for p, _ in got)
     for (p, a), (_, b) in zip(got, want):
         assert np.array_equal(a, b), p
+
+
+def test_init_lays_out_the_hybrid_tree():
+    """Ones on the reference tree's 1-D leaves — ``final_norm`` and the
+    shared block's unstacked ``ln1``/``ln2`` — and N(0, 0.02²) elsewhere,
+    the stacked layer norms included; the same seed draws the same
+    values."""
+    _, tc = _cfgs("float32")
+    model = t_get_model(tc, device="cpu").init(0)
+    ones = {"embed.final_norm", "shared_attn.ln1", "shared_attn.ln2"}
+    for name, p in model.named_parameters():
+        if name in ones:
+            assert torch.equal(p, torch.ones_like(p)), name
+        elif p.numel() > 64:
+            assert abs(float(p.detach().std()) - 0.02) < 0.01, name
+    assert not torch.equal(model.layers[0].ln, torch.ones(tc.d_model))
+    again = t_get_model(tc, device="cpu").init(0)
+    for (n, a), (_, b) in zip(model.named_parameters(),
+                              again.named_parameters()):
+        assert torch.equal(a, b), n
 
 
 def test_init_cache_matches_reference(run):
