@@ -107,7 +107,7 @@ points at full size:
   and 3 timed steps (host clock, card synchronised; tokens/s, model flops
   6·N·tokens against the bf16 peak, peak memory, 128 conv launches a
   step), one step under ``torch.profiler`` (device busy and idle share,
-  kernel classes, launches), 5 steps on a repeated batch (the loss
+  kernel classes, launches), 3 steps on a repeated batch (the loss
   falls); the conv kernel bit-equal to its plain version on layer 0's
   training input and timed beside the plain VJP (``causal_conv1d_vjp``)
   and their byte bounds; at 2 layers and full width, one step on the card
@@ -148,7 +148,26 @@ points at full size:
   internvl2 and whisper at 2 layers, and mixtral at 1 layer (1 × 128,
   routes compared token by token), against the CPU.  None of the port's
   kernels is on these paths (the reference computes every product there
-  as a plain einsum): each phase asserts that their counts stay 0.
+  as a plain einsum): each phase asserts that their counts stay 0;
+* ``mesh_step``         — the trainer's mesh: a training step under
+  ``activate_mesh(make_test_mesh())`` bit-equal to the same step without
+  (granite-3-2b at 2 layers, 1 × 256; one mixtral-8x22b layer bound to
+  ``dp=2``, 2 × 64), each also against the CPU's step within
+  ``mamba2_train``'s bands; then ``launch.train.main`` for 2 granite
+  steps under its own mesh;
+* ``roofline_granite_train`` — granite's full-width step (2 × 4096)
+  counted by ``launch.op_analysis`` on ``meta``: model and counted flops,
+  ``useful_flop_ratio`` (at most 1), ``t_compute`` and ``t_memory`` on
+  the published peaks, beside ``granite_train``'s measured step (no
+  shorter than the larger of the two);
+* ``dryrun_cells``      — ``python -m repro_torch.launch.dryrun`` for
+  granite-3-2b ``train_4k`` on 16×16 and mixtral-8x22b ``decode_32k`` on
+  2×16×16, in a child process that sees no card (host only);
+* ``mixtral_train``     — mixtral-8x22b at published width, 1 of 56
+  layers, trained at 1 × 4096 for 3 steps: step time, tokens/s, peak
+  memory (at most 75 GB), assignments dropped; finite loss and gradients;
+* ``lm_examples``       — the ``train_lm`` twin at 100M, 60 steps at 8 ×
+  256 (the loss falls), and the ``serve_lm`` twin.
 
 Each phase zeroes the kernels' launch counters, drives the path, reads the
 counters (each kernel of the path must have launched), checks the output
@@ -250,9 +269,9 @@ def main() -> None:
     from repro_torch.kernels.ops import apply_star_2nd_order
     from repro_torch.obs.report import reconcile, summarize
     from repro_torch.plan import default_planner, resolve_tuner
+    from repro_torch.runtime.isa import pin_precision
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_precision()
     dev = torch.device("cuda")
     card_line = card()
     kernels = {
@@ -2120,8 +2139,8 @@ def main() -> None:
                    "granite-3-2b", 4, 2048, 16, warm=2, profile=True,
                    cpu_layers=2, name="granite_serve")
     lap("granite_serve")
-    lm_train_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
-                   max_err)
+    granite = lm_train_phase(torch, dev, card_line, emit, reset, counts,
+                             bits_equal, max_err)
     lap("granite_train")
     from repro_torch.configs import get_config
 
@@ -2140,6 +2159,19 @@ def main() -> None:
                             "teacher_forcing_gated")}
         for ph in served]})
     lap("families_serve")
+    # -- the sharded model stack and the model tooling ------------------------
+    # None of the port's kernels is on these paths either.
+    mesh_step_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
+                    max_err)
+    lap("mesh_step")
+    roofline_phase(torch, card_line, emit, granite)
+    lap("roofline_granite_train")
+    dryrun_phase(card_line, emit)
+    lap("dryrun_cells")
+    mixtral_train_phase(torch, dev, card_line, emit, reset, counts)
+    lap("mixtral_train")
+    lm_examples_phase(torch, card_line, emit, reset, counts)
+    lap("lm_examples")
     # -- summary ---------------------------------------------------------------
     rows = []
     every_phase = [ph for phases in summary.values() for ph in phases]
@@ -2604,32 +2636,28 @@ def stream_ms(torch, fn, n) -> float:
     return a.elapsed_time(b) / n
 
 
-def train_checks(torch, cfg2, dev, bits_equal, max_err):
+def card_vs_cpu_step(torch, cfg2, dev, max_err, batch):
     """At a small depth ``cfg2``: one training step on the card against
     the same step on the CPU (plain versions), from the same weights
-    (seed 1) and state, on one pipeline batch of 256 tokens, within the
-    stated bands (asserted); then an async save after a step, a restore
-    into fresh objects and a step, bit-equal to the uninterrupted run
-    (asserted).  Returns ``(losses and gradient norms, parameter max abs
-    error, update sign agreement, save host seconds, resume exact)``."""
-    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
-    from repro_torch.data import DataConfig, TokenPipeline
-    from repro_torch.launch.train import restore_state, save_state, train_step
+    (seed 1, drawn on the card and copied to the CPU) and state, on the
+    pipeline batch ``batch``, within the stated bands (asserted).  Returns
+    ``(losses and gradient norms, parameter max abs error, update sign
+    agreement)``."""
+    from repro_torch.launch.train import train_step
     from repro_torch.models import get_model
     from repro_torch.optim import OptConfig, adamw_init
 
     m_cpu, m_gpu = get_model(cfg2, device="cpu"), get_model(cfg2, device=dev)
-    p_cpu = m_cpu.init(1)
-    p_gpu = m_gpu.fam.module(cfg2, device=dev)
-    p_gpu.load_state_dict(p_cpu.state_dict())
-    small = TokenPipeline(DataConfig(vocab=cfg2.vocab, seq_len=256,
-                                     global_batch=1, seed=3))
+    p_gpu = m_gpu.init(1)
+    p_cpu = m_gpu.fam.module(cfg2, device="cpu")
+    p_cpu.load_state_dict(p_gpu.state_dict())
     ocfg2 = OptConfig(lr=1e-3, warmup_steps=1)
-    before = {k: v.detach().clone() for k, v in p_cpu.named_parameters()}
+    # The starting point stays on the card: the CPU holds one model.
+    before = {k: v.detach().clone() for k, v in p_gpu.named_parameters()}
     res = {}
     for where, m2, prm in (("cpu", m_cpu, p_cpu), ("card", m_gpu, p_gpu)):
         o2 = adamw_init(dict(prm.named_parameters()))
-        _, _, met = train_step(m2, prm, o2, small.batch_at(0), ocfg2)
+        _, _, met = train_step(m2, prm, o2, batch, ocfg2)
         res[where] = {"loss": float(met["loss"]),
                       "grad_norm": float(met["grad_norm"])}
     # Bands: the loss within two bf16 ulps, the gradient norm within four
@@ -2641,12 +2669,14 @@ def train_checks(torch, cfg2, dev, bits_equal, max_err):
     upd_agree, upd_n, p_err = 0, 0, 0.0
     named_gpu = dict(p_gpu.named_parameters())
     for k, pc in p_cpu.named_parameters():
-        pg = named_gpu[k].detach().cpu()
-        p_err = max(p_err, max_err(pg, pc.detach()))
-        du_c = torch.sign(pc.detach() - before[k])
+        pg = named_gpu[k].detach()
+        pc = pc.detach().to(dev)
+        p_err = max(p_err, max_err(pg, pc))
+        du_c = torch.sign(pc - before[k])
         du_g = torch.sign(pg - before[k])
         upd_agree += int((du_c == du_g).sum())
         upd_n += du_c.numel()
+        del pc, du_c, du_g
     agree = upd_agree / upd_n
     cpu_ok = (abs(res["card"]["loss"] - res["cpu"]["loss"])
               <= 2.0 ** -7 * abs(res["cpu"]["loss"])
@@ -2654,24 +2684,35 @@ def train_checks(torch, cfg2, dev, bits_equal, max_err):
               <= 2.0 ** -6 * res["cpu"]["grad_norm"]
               and p_err <= 2.02 * ocfg2.lr and agree >= 0.98)
     assert cpu_ok, (res, p_err, agree)
-    del m_cpu, p_cpu, p_gpu, before
+    return res, p_err, agree
 
-    # Save (async) after step 1, restore into fresh objects, step again:
-    # bit-equal to the uninterrupted run.
+
+def resume_check(torch, cfg2, dev, bits_equal, data):
+    """At a small depth ``cfg2``: an async save after a step on batch 1 of
+    ``data``, a restore into fresh objects and a step on batch 2,
+    bit-equal to the uninterrupted run (asserted).  Returns ``(save host
+    seconds, resume exact)``."""
+    from repro_torch.checkpoint import CheckpointConfig, Checkpointer
+    from repro_torch.launch.train import restore_state, save_state, train_step
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig, adamw_init
+
+    m_gpu = get_model(cfg2, device=dev)
+    ocfg2 = OptConfig(lr=1e-3, warmup_steps=1)
     pa = m_gpu.init(2)
     oa = adamw_init(dict(pa.named_parameters()))
-    pa, oa, _ = train_step(m_gpu, pa, oa, small.batch_at(1), ocfg2)
+    pa, oa, _ = train_step(m_gpu, pa, oa, data.batch_at(1), ocfg2)
     with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as d:
         ck = Checkpointer(CheckpointConfig(d))
         t0 = time.perf_counter()
         save_state(ck, 1, pa, oa, blocking=False)
         save_host_s = time.perf_counter() - t0
-        pa, oa, met_a = train_step(m_gpu, pa, oa, small.batch_at(2), ocfg2)
+        pa, oa, met_a = train_step(m_gpu, pa, oa, data.batch_at(2), ocfg2)
         ck.wait()
         pb = m_gpu.init(7)
         ob, at = restore_state(ck, m_gpu, pb)
         assert at == 1 and int(ob["count"]) == 1
-        pb, ob, met_b = train_step(m_gpu, pb, ob, small.batch_at(2), ocfg2)
+        pb, ob, met_b = train_step(m_gpu, pb, ob, data.batch_at(2), ocfg2)
     named_b = dict(pb.named_parameters())
     differ = sorted(
         [f"params.{k}" for k, v in pa.named_parameters()
@@ -2682,6 +2723,21 @@ def train_checks(torch, cfg2, dev, bits_equal, max_err):
                     and bits_equal(met_a["loss"], met_b["loss"])
                     and int(oa["count"]) == int(ob["count"]) == 2)
     assert resume_exact, differ[:10]
+    return save_host_s, resume_exact
+
+
+def train_checks(torch, cfg2, dev, bits_equal, max_err):
+    """:func:`card_vs_cpu_step` and :func:`resume_check` at ``cfg2`` on a
+    pipeline of one 256-token row a batch."""
+    from repro_torch.data import DataConfig, TokenPipeline
+
+    small = TokenPipeline(DataConfig(vocab=cfg2.vocab, seq_len=256,
+                                     global_batch=1, seed=3))
+    res, p_err, agree = card_vs_cpu_step(torch, cfg2, dev, max_err,
+                                         small.batch_at(0))
+    torch.cuda.empty_cache()
+    save_host_s, resume_exact = resume_check(torch, cfg2, dev, bits_equal,
+                                             small)
     return res, p_err, agree, save_host_s, resume_exact
 
 
@@ -2749,11 +2805,11 @@ def mamba2_train_phase(torch, dev, card_line, emit, reset, counts, time_ms,
     # Where a step's time goes (after the timed steps: its cost is in no
     # time above); device activity only.
     prof = profile_breakdown(torch, lambda: step(4), cpu=False)
-    # The loss on a repeated batch over 5 steps (lr repeat_lr from the
-    # first).
+    # The loss on a repeated batch over 3 steps (lr repeat_lr from the
+    # first; 5 until the sharded stack's phases needed the time).
     repeat = data.batch_at(0)
     fast = OptConfig(lr=repeat_lr, warmup_steps=1)
-    repeated = [float(step(0, fast, repeat)["loss"]) for _ in range(5)]
+    repeated = [float(step(0, fast, repeat)["loss"]) for _ in range(3)]
     falls = repeated[-1] < repeated[0]  # asserted after the record prints
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
@@ -3223,6 +3279,308 @@ def lm_train_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
     emit(phase)
     assert peak_gb <= 75.0, peak_gb
     assert falls, repeated
+    return phase
+
+
+
+def _step_pair(torch, model, seed, batch, ocfg, mesh):
+    """One ``train_step`` of fresh weights (``seed``) on ``batch``, under
+    ``activate_mesh(mesh)`` unless ``mesh`` is None: the loss and the
+    updated parameters, and the constraints resolved on the way."""
+    from repro_torch.launch.train import train_step
+    from repro_torch.optim import adamw_init
+    from repro_torch.parallel.sharding import activate_mesh, record_constraints
+
+    params = model.init(seed)
+    opt = adamw_init(dict(params.named_parameters()))
+    if mesh is None:
+        _, _, met = train_step(model, params, opt, batch, ocfg)
+        seen = []
+    else:
+        with activate_mesh(mesh), record_constraints() as seen:
+            _, _, met = train_step(model, params, opt, batch, ocfg)
+    torch.cuda.synchronize()
+    return met["loss"], params, len(seen)
+
+
+def mesh_step_phase(torch, dev, card_line, emit, reset, counts, bits_equal,
+                    max_err) -> dict:
+    """``mesh_step``: the trainer's mesh on the card.  For granite-3-2b at
+    2 layers and full width, and for 1 mixtral-8x22b layer at full width
+    bound to ``dp=2`` (two dispatch groups, batch 2 × 64): one training
+    step under ``activate_mesh(make_test_mesh())`` is bit-equal (loss and
+    every updated parameter) to the same step without a mesh, and the
+    step on the card is held to the CPU's within ``mamba2_train``'s bands
+    (``card_vs_cpu_step``).  Then ``launch.train.main`` runs 2 granite
+    steps (40 layers, batch 2 × 256) under its own mesh."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch import train as ttrain
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import OptConfig
+
+    mesh = make_test_mesh()
+    rows = []
+    reset()
+    for arch, layers, batch, seq in (("granite-3-2b", 2, 1, 256),
+                                     ("mixtral-8x22b", 1, 2, 64)):
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers,
+                                  loss_chunk=min(seq, 128))
+        if cfg.moe is not None:
+            cfg = cfg.bind(tp=1, dp=2)
+        model = get_model(cfg, device=dev)
+        data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=batch, seed=4))
+        b = data.batch_at(0)
+        ocfg = OptConfig(lr=1e-3, warmup_steps=1)
+        t0 = time.perf_counter()
+        l0, p0, _ = _step_pair(torch, model, 3, b, ocfg, None)
+        named0 = {k: v.detach().clone() for k, v in p0.named_parameters()}
+        del p0
+        l1, p1, n_seen = _step_pair(torch, model, 3, b, ocfg, mesh)
+        differ = [k for k, v in p1.named_parameters()
+                  if not bits_equal(v.detach(), named0[k])]
+        exact = bits_equal(l0, l1) and not differ
+        step_s = time.perf_counter() - t0
+        del p1, named0
+        torch.cuda.empty_cache()
+        res, p_err, agree = card_vs_cpu_step(torch, cfg, dev, max_err, b)
+        torch.cuda.empty_cache()
+        rows.append({
+            "arch": cfg.name, "layers": layers, "batch": batch, "seq": seq,
+            "tp": cfg.tp, "dp": cfg.dp, "mesh": mesh.shape,
+            "constraints_resolved": n_seen, "loss": float(l0),
+            "mesh_bit_equal": exact, "params_differing": differ[:5],
+            "two_steps_s": step_s, "card_vs_cpu": res,
+            "card_vs_cpu_param_max_abs_err": p_err,
+            "card_vs_cpu_update_sign_agreement": agree,
+        })
+    # launch.train.main with its mesh: the 40-layer model, 2 steps.
+    t0 = time.perf_counter()
+    losses = ttrain.main(["--arch", "granite-3-2b", "--steps", "2",
+                          "--batch", "2", "--seq", "256", "--log-every",
+                          "1"])
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    launched = counts()
+    phase = {
+        "phase": "mesh_step", "rows": rows, "launches": launched,
+        "train_main_losses": losses, "train_main_s": main_s,
+        "card": card_line,
+    }
+    emit(phase)
+    assert not any(launched.values()), launched
+    assert all(r["mesh_bit_equal"] and r["constraints_resolved"] > 0
+               for r in rows), rows
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    return phase
+
+
+def roofline_phase(torch, card_line, emit, granite) -> dict:
+    """``roofline_granite_train``: granite-3-2b's full-width training step
+    at ``granite_train``'s batch (2 × 4096) counted by
+    ``launch.op_analysis`` (on ``meta``: the same ops, nothing
+    allocated), its roofline on this card's published peaks
+    (``launch.roofline``), beside the step ``granite_train`` measured.
+    Gates: ``useful_flop_ratio`` at most 1 (model flops 6·N·tokens are a
+    part of the counted ones), and the measured step no shorter than
+    ``max(t_compute, t_memory)``: no card beats its own roofline, so a
+    failure means the count is wrong."""
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.launch import roofline as rf
+    from repro_torch.launch.op_analysis import LiveBytes, count_ops
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import batch_specs, count_params, get_model
+    from repro_torch.optim import OptConfig, adamw_init
+
+    t0 = time.perf_counter()
+    cfg = get_config("granite-3-2b")
+    shape = dataclasses.replace(LM_SHAPES["train_4k"],
+                                global_batch=granite["batch"])
+    model = get_model(cfg, device="meta")
+    params = model.init()
+    opt = adamw_init(dict(params.named_parameters()))
+    batch = {k: torch.empty(sp.shape, dtype=sp.dtype, device="meta")
+             for k, sp in batch_specs(cfg, shape).items()}
+    with LiveBytes() as live:
+        _, cost = count_ops(lambda: train_step(model, params, opt, batch,
+                                               OptConfig()))
+    count_s = time.perf_counter() - t0
+    tokens = shape.global_batch * shape.seq_len
+    model_flops = 6.0 * count_params(cfg) * tokens
+    roof = rf.analyze(cost, model_flops, 1)
+    step_s = granite["step_ms"] / 1e3
+    floor_s = max(roof.t_compute, roof.t_memory)
+    phase = {
+        "phase": "roofline_granite_train", "arch": cfg.name,
+        "batch": shape.global_batch, "seq": shape.seq_len,
+        "model_flops": model_flops, "counted_flops": cost.flops,
+        "counted_hbm_bytes": cost.hbm_bytes,
+        "counted_flops_by_op": cost.per_op,
+        "useful_flop_ratio": roof.useful_ratio,
+        "t_compute_s": roof.t_compute, "t_memory_s": roof.t_memory,
+        "bottleneck": roof.bottleneck,
+        "measured_step_s": step_s,
+        "measured_over_roofline": step_s / floor_s,
+        "counted_temp_bytes": live.peak, "count_s": count_s,
+        "peaks": {"flops": rf.PEAK_FLOPS, "hbm": rf.HBM_BW},
+        "card": card_line,
+    }
+    emit(phase)
+    assert roof.useful_ratio <= 1.0, phase
+    assert step_s >= floor_s, phase
+    return phase
+
+
+def dryrun_phase(card_line, emit) -> dict:
+    """``dryrun_cells``: ``python -m repro_torch.launch.dryrun`` for
+    granite-3-2b ``train_4k`` on the 16×16 mesh and mixtral-8x22b
+    ``decode_32k`` on 2×16×16, in a child process that sees no card
+    (``CUDA_VISIBLE_DEVICES=""``): the dry-run runs on the host only, on
+    ``meta``.  Each record's GB per device, ``fits_80g``, bottleneck and
+    seconds."""
+    rows = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dryrun-") as d:
+        out = os.path.join(d, "dryrun.jsonl")
+        env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+        for arch, shape, mesh in (("granite-3-2b", "train_4k", "single"),
+                                  ("mixtral-8x22b", "decode_32k", "multi")):
+            t0 = time.perf_counter()
+            proc = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", arch, "--shape", shape, "--mesh", mesh,
+                 "--out", out, "--force"],
+                env=env, capture_output=True, text=True, timeout=600,
+                cwd=ROOT)
+            if proc.returncode:
+                fail(f"dryrun {arch} {shape}: {proc.stderr[-2000:]}")
+            rec = json.loads(Path(out).read_text().splitlines()[-1])
+            if not rec.get("ok"):
+                fail(f"dryrun {arch} {shape}: {rec.get('error')}")
+            rows.append({
+                "arch": arch, "shape": shape, "mesh": rec["mesh"],
+                "gb_per_device": rec["bytes_per_device"] / 1e9,
+                "argument_gb": rec["memory"]["argument_size_in_bytes"] / 1e9,
+                "temp_gb": rec["memory"]["temp_size_in_bytes"] / 1e9,
+                "fits_80g": rec["fits_80g"],
+                "bottleneck": rec["roofline"]["bottleneck"],
+                "t_compute_s": rec["roofline"]["t_compute_s"],
+                "t_memory_s": rec["roofline"]["t_memory_s"],
+                "t_collective_s": rec["roofline"]["t_collective_s"],
+                "trace_s": rec["trace_s"],
+                "seconds": time.perf_counter() - t0,
+            })
+    phase = {"phase": "dryrun_cells", "where": "host only (meta device, "
+             "CUDA_VISIBLE_DEVICES empty)", "rows": rows,
+             "card": card_line}
+    emit(phase)
+    return phase
+
+
+def mixtral_train_phase(torch, dev, card_line, emit, reset, counts) -> dict:
+    """``mixtral_train``: MoE training on the card.  mixtral-8x22b at
+    published width, depth cut to 1 of 56 layers (its training state is
+    ~40 GB a layer: two do not fit one card), weights from seed 0, trained
+    through ``launch.train.train_step`` at batch 1 × 4096 for 3 steps:
+    step time (host clock, card synchronised), tokens/s, peak memory (at
+    most 75 GB), and the MoE assignments dropped at capacity (one
+    forward of the first batch without autograd, routes recorded).  Gated
+    on a finite loss and gradient norm at every step."""
+    import numpy as np
+
+    from repro_torch.configs import LM_SHAPES, get_config
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.launch.train import train_step
+    from repro_torch.models import get_model, transformer
+    from repro_torch.optim import OptConfig, adamw_init
+
+    seq = LM_SHAPES["train_4k"].seq_len
+    cfg = dataclasses.replace(get_config("mixtral-8x22b"), n_layers=1)
+    model = get_model(cfg, device=dev)
+    data = TokenPipeline(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                    global_batch=1, seed=0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(0)
+    opt = adamw_init(dict(params.named_parameters()))
+    n_params = sum(p.numel() for p in params.parameters())
+    state_gb = torch.cuda.memory_allocated() / 1e9
+    reset()
+    step_s, losses, gnorms = [], [], []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = train_step(model, params, opt, data.batch_at(i),
+                                      OptConfig())
+        losses.append(float(met["loss"]))
+        gnorms.append(float(met["grad_norm"]))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+    launched = counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    routes = params.moe_routes = []
+    with torch.inference_mode():
+        toks = torch.as_tensor(data.batch_at(0)["tokens"]).to(dev).long()
+        transformer.lm_forward(cfg, params, toks, 0)
+    params.moe_routes = None
+    dropped = [int(r["dropped"].sum()) for r in routes]
+    step_ms = statistics.median(step_s[1:]) * 1e3
+    del params, opt
+    torch.cuda.empty_cache()
+    phase = {
+        "phase": "mixtral_train", "arch": cfg.name, "layers": 1,
+        "published_layers": get_config("mixtral-8x22b").n_layers,
+        "d_model": cfg.d_model, "experts": cfg.moe.n_experts,
+        "params": n_params, "batch": 1, "seq": seq,
+        "state_gb_before_step": state_gb, "launches": launched,
+        "cold_step_ms": step_s[0] * 1e3, "step_ms": step_ms,
+        "tokens_per_s": seq / step_ms * 1e3, "peak_memory_gb": peak_gb,
+        "losses": losses, "grad_norms": gnorms,
+        "assignments": seq * cfg.moe.top_k, "dropped": dropped,
+        "card": card_line,
+    }
+    emit(phase)
+    assert not any(launched.values()), launched
+    assert all(np.isfinite(v) for v in losses + gnorms), (losses, gnorms)
+    assert peak_gb <= 75.0, peak_gb
+    return phase
+
+
+def lm_examples_phase(torch, card_line, emit, reset, counts) -> dict:
+    """``lm_examples``: the ``train_lm`` twin at its 100M config on the
+    card, 60 steps at batch 8 × 256 (checkpoints to a temporary
+    directory): the mean of the last 5 losses below that of the first 5;
+    then the ``serve_lm`` twin (mixtral-8x22b's smoke config)."""
+    import numpy as np
+
+    from repro_torch.examples import serve_lm, train_lm
+
+    reset()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-lm100m-") as d:
+        losses = train_lm.main(["--steps", "60", "--batch", "8", "--seq",
+                                "256", "--ckpt-dir", d])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks = serve_lm.main(["--arch", "mixtral-8x22b"])
+    serve_s = time.perf_counter() - t0
+    launched = counts()
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    phase = {
+        "phase": "lm_examples", "train_lm_steps": len(losses),
+        "train_lm_first5": first, "train_lm_last5": last,
+        "train_lm_s": train_s, "serve_lm_arch": "mixtral-8x22b",
+        "serve_lm_tokens_shape": list(toks.shape), "serve_lm_s": serve_s,
+        "launches": launched, "card": card_line,
+    }
+    emit(phase)
+    assert len(losses) == 60 and last < first, (first, last)
+    assert tuple(toks.shape) == (4, 12)
     return phase
 
 

@@ -11,8 +11,9 @@ Run from the root of a checkout on a machine with an NVIDIA H100 (no
 architecture of ``chip_smoke.FAMILIES`` at published width, its depth
 cut by ``chip_smoke.fit_layers``); an architecture's name runs that
 family alone.  The phases are ``chip_smoke.lm_serve_phase`` and
-``lm_train_phase`` with the smoke's checks, weights from seed 0 and TF32
-off; none of the port's kernels is on these paths, so nothing is built.
+``lm_train_phase`` with the smoke's checks, weights from seed 0 and the
+precision pinned (``runtime.isa.pin_precision``: TF32 off); none of the
+port's kernels is on these paths, so nothing is built.
 A family that fails is reported and the rest still run; the exit code is
 1 if any failed.  Each phase's record is printed (cut to 3,000
 characters) and appended whole to ``--out`` (JSON lines), followed by
@@ -47,12 +48,12 @@ def main(argv=None) -> int:
     import chip_smoke as cs
     from repro_torch.configs import get_config
     from repro_torch.kernels import conv1d, sweep
+    from repro_torch.runtime.isa import pin_precision
 
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 1
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    pin_precision()
     dev = torch.device("cuda")
     card_line = cs.card()
     print(card_line, torch.__version__, torch.version.cuda, flush=True)

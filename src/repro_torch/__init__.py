@@ -4,7 +4,8 @@ The JAX package ``repro`` is the reference; this package imports none of
 it.  Its entry points run on the card: ``device=None`` means ``"cuda"``,
 and a caller that wants the CPU (the tests) passes ``device="cpu"``.
 Without CUDA and without ``device="cpu"`` they raise — they never run on
-the CPU quietly.
+the CPU quietly.  ``device="meta"`` (shapes without storage, the
+dry-run's device) is taken only where a caller names it.
 """
 
 from __future__ import annotations
@@ -15,7 +16,8 @@ __all__ = ["resolve_device"]
 
 
 def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``None`` means ``"cuda"``.
+    """The device an entry point runs on: ``None`` means ``"cuda"``;
+    ``"cpu"`` and ``"meta"`` only when named.
 
     Raises ``RuntimeError`` when a CUDA device is asked for (explicitly or
     by default) and ``torch.cuda.is_available()`` is false."""
@@ -26,6 +28,6 @@ def resolve_device(device=None) -> torch.device:
             "is false; pass device='cpu' to run the plain PyTorch versions "
             "on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev

@@ -2,12 +2,15 @@
 / ``list_archs()``, with the JAX package's names.
 
 Each of the ten architectures has a module here with the published dims
-and a ``smoke()`` reduced config of the same family for CPU tests.
+and a ``smoke()`` reduced config of the same family for CPU tests; a
+caller may register another config module under this package in
+``sys.modules``, as the reference's ``examples/train_lm.py`` does.
 """
 
 from __future__ import annotations
 
 import importlib
+import sys
 
 from .base import LM_SHAPES, ModelCfg, MoECfg, ShapeCfg, SSMCfg  # noqa: F401
 
@@ -30,10 +33,14 @@ def _norm(name: str) -> str:
 
 
 def _module(name: str):
+    """The config module of ``name``: one of :data:`ARCHS`, or one a
+    caller registered in ``sys.modules`` under this package (as
+    ``examples/train_lm.py`` registers its 100M config)."""
     arch = _norm(name)
-    if arch not in ARCHS:
+    full = f"{__name__}.{arch}"
+    if arch not in ARCHS and full not in sys.modules:
         raise ValueError(f"unknown architecture {name!r}")
-    return importlib.import_module(f"{__name__}.{arch}")
+    return importlib.import_module(full)
 
 
 def get_config(name: str) -> ModelCfg:

@@ -8,11 +8,13 @@ tests.  ``vocab_padded`` is the vocabulary rounded up to a multiple of
 ``padding_report`` scores the model's dims with the card's layout advice
 (``core.padding.advise_dim``: one 128-byte line of the compute dtype);
 ``padded_heads`` and ``stored_kv_heads`` are the reference's head
-padding for tensor parallelism, the identity at ``tp = 1``.
+padding for tensor parallelism, the identity at ``tp = 1``; ``bind(tp,
+dp)`` sets the mesh's sizes, as the reference's dry-run does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any, Optional
@@ -142,6 +144,22 @@ class ModelCfg:
     @property
     def ssm_heads(self) -> int:
         return self.d_inner // self.ssm.head_dim if self.ssm else 0
+
+    def bind(self, tp: int, dp: int = 1) -> "ModelCfg":
+        """The config bound to a mesh: ``tp`` pads the heads,
+        ``dp`` groups the MoE dispatch (the dry-run's rebinding)."""
+        return dataclasses.replace(self, tp=tp, dp=dp)
+
+    def param_count(self) -> int:
+        """Total parameters N (raw dims), for MODEL_FLOPS = 6·N·D."""
+        from ..models.model_api import count_params  # late import
+
+        return count_params(self)
+
+    def active_param_count(self) -> int:
+        from ..models.model_api import count_params
+
+        return count_params(self, active_only=True)
 
 
 @dataclass(frozen=True)

@@ -130,7 +130,7 @@ def cache_from_reference(cache_np, cfg, device=None):
         batch = int(np.shape(k)[1])
     max_len = 0 if k is None else int(np.shape(k)[2])
     out: dict = {}
-    specs = _family(cfg).cache_specs(cfg, batch, max_len)
+    specs = _family(cfg).cache_specs(cfg, batch, max_len, False)
     for path, spec in flatten_tree(specs):
         a = np.asarray(got[path])
         if tuple(a.shape) != spec.shape:

@@ -23,15 +23,12 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..runtime.isa import NVCC_FLAGS  # the flags' home
+
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "PTXAS", "build_all", "load"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "--fmad=false", "-std=c++17",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
 
 PTXAS: dict[str, list[str]] = {}
 BUILD_SECONDS: dict[str, float] = {}

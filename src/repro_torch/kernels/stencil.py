@@ -55,7 +55,7 @@ from ..core.tiling import (
     halo_from_offsets,
     stage_suffix_halos,
 )
-from ..launch.mesh import ColumnMesh
+from ..launch.mesh import ModelMesh
 from .sweep import hopper_device, sweep_apply, sweep_chain
 
 __all__ = [
@@ -327,7 +327,7 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
         num_shards=num_shards,
     )
     if mesh is not None:
-        kw["mesh_axis"] = mesh.axis_name
+        kw["mesh_axis"] = mesh.axis_names[0]
     if stages is not None:
         kw["stages"] = [np.asarray(o).reshape(-1, d) for o in stages]
         if bcs is not None and any(bc is not None for bc in bcs):
@@ -479,8 +479,8 @@ def multi_stencil_pallas(
     decision already.  ``trace="path.json"`` records this call into a
     Chrome ``trace_event`` file (see :mod:`repro_torch.obs`).
 
-    ``num_shards=S`` (or ``mesh=``, a
-    :class:`~repro_torch.launch.mesh.ColumnMesh`, or a plan with
+    ``num_shards=S`` (or ``mesh=``, a one-axis mesh of
+    :func:`~repro_torch.launch.mesh.make_column_mesh`, or a plan with
     ``num_shards > 1``) runs every launch column-sharded over S devices
     along ``shard_axis`` (the planner's or
     :func:`~repro_torch.parallel.shard_columns.pick_shard_axis`'s choice
@@ -622,10 +622,11 @@ def multi_stencil_pallas(
     # -- the launch decision: explicit tile, precompiled plan, or planner --
     explicit_sweep = sweep_axis is not None
     explicit_shard = shard_axis is not None
-    if mesh is not None and not isinstance(mesh, ColumnMesh):
+    if mesh is not None and not (isinstance(mesh, ModelMesh)
+                                 and len(mesh.axis_names) == 1):
         raise TypeError(
-            "mesh= takes a ColumnMesh (repro_torch.launch.mesh."
-            f"make_column_mesh), got {type(mesh).__name__}"
+            "mesh= takes a one-axis mesh (repro_torch.launch.mesh."
+            f"make_column_mesh), got {mesh!r}"
         )
     if num_shards is None:
         if mesh is not None:

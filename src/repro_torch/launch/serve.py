@@ -24,7 +24,8 @@ fit its cache at all.  This loop does not copy that.
 ``--conv-tile N`` routes the causal conv of every SSM prefill through
 the conv kernel with N tokens per block (``SSMCfg(pallas_conv=True,
 conv_tile=N)``); without it the conv is the unrolled loop, as in the
-reference's default config.
+reference's default config.  :func:`main` pins f32 precision first
+(``runtime.isa.pin_precision``: no TF32).
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ import torch
 from .. import resolve_device
 from ..configs import get_config, get_smoke_config
 from ..models import get_model
+from ..runtime.isa import pin_precision
 
 __all__ = ["serve", "stub_inputs", "main"]
 
@@ -123,6 +125,7 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, pallas_conv=True, conv_tile=args.conv_tile))
     dev = resolve_device(args.device)
+    pin_precision()
     params = get_model(cfg, device=dev).init(args.seed)
     gen = torch.Generator(device=dev)
     gen.manual_seed(args.seed)

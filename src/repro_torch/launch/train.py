@@ -6,9 +6,14 @@
 runs on the card; ``--smoke --device cpu`` trains the reduced config on
 the CPU through the kernels' plain versions.  The JAX package's loop: the
 token pipeline, AdamW, checkpoint/restart (auto-resume from LATEST, async
-writes in the reference's format), and the heartbeat monitor.  One
-process drives one device; the reference's mesh and its ``shard_map``
-compression path come with ``ROADMAP.md`` queue A item 12.  ``--arch``
+writes in the reference's format), and the heartbeat monitor, run under
+the test mesh (``make_test_mesh`` over the visible devices, entered with
+``activate_mesh``) as the reference's is: the model's sharding
+constraints resolve against it and change no value.  One process drives
+one device.  The reference's ``shard_map`` compression path has no
+caller in its trainer; the port's ``optim.compressed_mean`` takes the
+workers' gradients as a list.  Precision is pinned first
+(``runtime.isa.pin_precision``: no TF32).  ``--arch``
 takes the SSM family, the Zamba2 hybrid, and the dense, MoE and VLM
 transformers (the default is ``granite-3-2b``, as in the reference); a
 VLM trains on the pipeline's token batches alone, as the reference's
@@ -43,7 +48,10 @@ from ..optim import (
     decay_mask,
     opt_state_specs,
 )
+from ..parallel.sharding import activate_mesh
 from ..runtime import Action, ClusterMonitor
+from ..runtime.isa import pin_precision
+from .mesh import make_test_mesh
 
 __all__ = ["main", "restore_state", "save_state", "train_step"]
 
@@ -120,8 +128,10 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, ssm=dataclasses.replace(
             cfg.ssm, pallas_conv=True, conv_tile=args.conv_tile))
     dev = resolve_device(args.device)
+    pin_precision()
     model = get_model(cfg, device=dev)
     opt_cfg = OptConfig(lr=args.lr, total_steps=args.steps)
+    mesh = make_test_mesh(device=dev)
     monitor = ClusterMonitor()
 
     data = TokenPipeline(DataConfig(
@@ -140,27 +150,29 @@ def main(argv=None):
             opt_state, start_step = restore_state(ckpt, model, params)
             print(f"resumed from step {start_step}")
 
-    t0 = time.time()
-    losses = []
-    for step in range(start_step, args.steps):
-        params, opt_state, metrics = train_step(
-            model, params, opt_state, data.batch_at(step), opt_cfg)
-        losses.append(float(metrics["loss"]))
-        action = monitor.tick(host=0, step=step)
-        if action not in (Action.CONTINUE, Action.WAIT):
-            print(f"monitor action: {action} (single-host: informational)")
-        if ckpt and (step + 1) % args.ckpt_every == 0:
-            save_state(ckpt, step + 1, params, opt_state, blocking=False)
-        if (step + 1) % args.log_every == 0:
-            dt = (time.time() - t0) / (step + 1 - start_step)
-            print(
-                f"step {step+1} loss {losses[-1]:.4f} "
-                f"gnorm {float(metrics['grad_norm']):.3f} "
-                f"lr {float(metrics['lr']):.2e} ({dt:.2f}s/step)",
-                flush=True,
-            )
-    if ckpt:
-        save_state(ckpt, args.steps, params, opt_state, blocking=True)
+    with activate_mesh(mesh):
+        t0 = time.time()
+        losses = []
+        for step in range(start_step, args.steps):
+            params, opt_state, metrics = train_step(
+                model, params, opt_state, data.batch_at(step), opt_cfg)
+            losses.append(float(metrics["loss"]))
+            action = monitor.tick(host=0, step=step)
+            if action not in (Action.CONTINUE, Action.WAIT):
+                print(f"monitor action: {action} (single-host: "
+                      "informational)")
+            if ckpt and (step + 1) % args.ckpt_every == 0:
+                save_state(ckpt, step + 1, params, opt_state, blocking=False)
+            if (step + 1) % args.log_every == 0:
+                dt = (time.time() - t0) / (step + 1 - start_step)
+                print(
+                    f"step {step+1} loss {losses[-1]:.4f} "
+                    f"gnorm {float(metrics['grad_norm']):.3f} "
+                    f"lr {float(metrics['lr']):.2e} ({dt:.2f}s/step)",
+                    flush=True,
+                )
+        if ckpt:
+            save_state(ckpt, args.steps, params, opt_state, blocking=True)
     if losses:
         first = np.mean(losses[:5]) if len(losses) >= 5 else losses[0]
         last = np.mean(losses[-5:])

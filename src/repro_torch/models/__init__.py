@@ -2,4 +2,4 @@
 decoder-only transformers (dense, MoE, VLM) and the encoder-decoder,
 served and trained."""
 
-from .model_api import Model, count_params, get_model  # noqa: F401
+from .model_api import Model, batch_specs, count_params, get_model  # noqa: F401

@@ -13,7 +13,9 @@ Whisper's learned positions; the MLPs are ungated with the tanh gelu
 autograd with ``cfg.remat`` each layer runs under
 ``torch.utils.checkpoint``.  The serving cache is the reference's
 (``self``: a full-length KV cache a decoder layer; ``cross``: each
-layer's keys and values of the encoder output), written in place.
+layer's keys and values of the encoder output), written in place.  The
+reference's sharding constraint on each layer's input is in place and
+changes no value.
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from .layers import (
     to_stored_kv,
     unembed,
 )
-from .transformer import stack_specs
+from .transformer import _constrain_act, stack_specs
 
 __all__ = [
     "EncDecModel",
@@ -110,6 +112,7 @@ def _remat(cfg) -> bool:
 
 def _enc_block(cfg, blk: SpecModule, x):
     p = blk.tensors()
+    x = _constrain_act(cfg, x)
     h, _ = attention_block(cfg, p["attn"], rms_norm(x, p["ln1"]), 0,
                            causal=False, use_rope=True)
     y = x + h
@@ -128,6 +131,7 @@ def encode(cfg, params: EncDecModel, frames):
 
 
 def _dec_block(cfg, p, x, pos, enc_out, self_cache, cross_cache):
+    x = _constrain_act(cfg, x)
     h, _ = attention_block(
         cfg, p["self_attn"], rms_norm(x, p["ln1"]), pos,
         causal=True, cache=self_cache,

@@ -27,7 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import ParamSpec
+from ..parallel.sharding import ParamSpec, constrain
 
 f32 = torch.float32
 
@@ -454,19 +454,24 @@ def moe_block(cfg, p, x, record: Optional[list] = None):
     and dispatches on its own (its routes appended to ``record``, see
     :func:`_moe_route`); the experts run as one batched product over
     every group, then each group gathers its tokens back.  With
-    ``dense_residual`` (arctic) a gated MLP runs beside the experts."""
+    ``dense_residual`` (arctic) a gated MLP runs beside the experts.  The
+    reference's four sharding constraints (groups over 'batch', experts
+    over 'expert') are in place and change no value."""
     m = cfg.moe
     cdt = cfg.compute_dtype
     b, s, d = x.shape
     g = cfg.dp if (cfg.dp > 1 and b % cfg.dp == 0) else 1
-    xg = x.reshape(g, (b // g) * s, d)
+    xg = constrain(x.reshape(g, (b // g) * s, d), ("batch", "", ""))
     routed = [_moe_route(cfg, p, xf, record) for xf in xg]
-    h = torch.stack([r[0] for r in routed])  # (G, E, cap, d)
+    h = constrain(torch.stack([r[0] for r in routed]),
+                  ("batch", "expert", "", ""))  # (G, E, cap, d)
     a1 = torch.einsum("gecd,edf->gecf", h, p["w1"].to(cdt))
     a3 = torch.einsum("gecd,edf->gecf", h, p["w3"].to(cdt))
     y = torch.einsum("gecf,efd->gecd", silu(a1) * a3, p["w2"].to(cdt))
+    y = constrain(y, ("batch", "expert", "", ""))
     out = torch.stack([_moe_combine(cfg, yi, r[1], r[2])
-                       for yi, r in zip(y, routed)]).reshape(b, s, d)
+                       for yi, r in zip(y, routed)])
+    out = constrain(out, ("batch", "", "")).reshape(b, s, d)
     if m.dense_residual:
         out = out + mlp_block(cfg, p["dense"], x)
     return out

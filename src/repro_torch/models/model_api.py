@@ -6,7 +6,8 @@
     logits, cache = model.prefill(params, batch, cache)
     logits, cache = model.decode_step(params, cache, token, pos)
 
-plus ``cache_specs`` / ``init_cache``.  ``params`` is the family's module
+plus ``cache_specs`` / ``init_cache``, and :func:`batch_specs` for the
+dry-run's inputs.  ``params`` is the family's module
 (:class:`~repro_torch.models.ssm.SSMModel`,
 :class:`~repro_torch.models.transformer.LMModel`,
 :class:`~repro_torch.models.encdec.EncDecModel`) where the reference
@@ -33,11 +34,12 @@ from typing import Any, Callable, NamedTuple
 import torch
 
 from .. import resolve_device
-from ..configs.base import ModelCfg
+from ..configs.base import ModelCfg, ShapeCfg
+from ..parallel.sharding import ParamSpec
 from . import encdec, ssm, transformer
 from .layers import flatten_tree, init_params_
 
-__all__ = ["Model", "get_model", "count_params", "family"]
+__all__ = ["Model", "get_model", "count_params", "family", "batch_specs"]
 
 
 class Family(NamedTuple):
@@ -46,7 +48,7 @@ class Family(NamedTuple):
     loss: Callable           # (cfg, params, batch) -> loss
     prefill: Callable        # (cfg, params, batch, cache) -> (logits, cache)
     decode: Callable         # (cfg, params, cache, token, pos)
-    cache_specs: Callable    # (cfg, batch, max_len) -> spec tree
+    cache_specs: Callable    # (cfg, batch, max_len, ring) -> spec tree
     init_cache: Callable     # (cfg, batch, max_len, device) -> cache
 
 
@@ -60,18 +62,20 @@ def _lm_prefill(cfg, params, batch, cache):
 
 
 _SSM = Family(ssm.ssm_param_specs, ssm.SSMModel, ssm.ssm_loss, _ssm_prefill,
-              ssm.ssm_decode_step, ssm.ssm_cache_specs, ssm.ssm_init_cache)
+              ssm.ssm_decode_step,
+              lambda cfg, b, n, ring: ssm.ssm_cache_specs(cfg, b, n),
+              ssm.ssm_init_cache)
 _LM = Family(
     transformer.lm_param_specs, transformer.LMModel, transformer.lm_loss,
-    _lm_prefill, transformer.lm_decode_step,
-    lambda cfg, b, n: transformer.lm_cache_specs(cfg, b, n, ring=False),
+    _lm_prefill, transformer.lm_decode_step, transformer.lm_cache_specs,
     lambda cfg, b, n, device: transformer.lm_init_cache(cfg, b, n,
                                                         device=device),
 )
 _ENCDEC = Family(
     encdec.encdec_param_specs, encdec.EncDecModel, encdec.encdec_loss,
     encdec.encdec_prefill, encdec.encdec_decode_step,
-    encdec.encdec_cache_specs, encdec.encdec_init_cache,
+    lambda cfg, b, n, ring: encdec.encdec_cache_specs(cfg, b, n),
+    encdec.encdec_init_cache,
 )
 _FAMILIES = {"ssm": _SSM, "hybrid": _SSM, "dense": _LM, "moe": _LM,
              "vlm": _LM, "hybrid-attn": _LM, "encdec": _ENCDEC}
@@ -106,9 +110,12 @@ class Model:
         """Parameters drawn from a ``torch.Generator`` seeded with ``seed``
         on the model's device, by the reference's ``init_from_specs`` rule
         (ones on 1-D leaves of its stacked tree, N(0, 0.02²) elsewhere),
-        in pieces into place (:func:`~.layers.init_params_`)."""
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
+        in pieces into place (:func:`~.layers.init_params_`).  On
+        ``meta`` (shapes only) there is nothing to draw and no generator."""
+        gen = None
+        if self.device.type != "meta":
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(seed)
         model = self.fam.module(self.cfg, device=self.device)
         return init_params_(model, self.param_specs(), gen)
 
@@ -141,8 +148,12 @@ class Model:
             token = torch.as_tensor(token).to(self.device)
             return self.fam.decode(self.cfg, params, cache, token, pos)
 
-    def cache_specs(self, batch: int, max_len: int):
-        return self.fam.cache_specs(self.cfg, batch, max_len)
+    def cache_specs(self, batch: int, max_len: int, ring: bool = False):
+        """The serving cache's spec tree.  ``ring=True`` gives a
+        sliding-window arch a window-sized ring (the reference's decode
+        cache); the default is the full-length cache that
+        :meth:`init_cache` allocates."""
+        return self.fam.cache_specs(self.cfg, batch, max_len, ring)
 
     def init_cache(self, batch: int, max_len: int):
         return self.fam.init_cache(self.cfg, batch, max_len,
@@ -167,3 +178,37 @@ def count_params(cfg: ModelCfg, active_only: bool = False) -> int:
                      if path.rsplit(".", 1)[-1] in ("w1", "w2", "w3"))
         total = total - expert + expert * cfg.moe.top_k // cfg.moe.n_experts
     return int(total)
+
+
+# ---------------------------------------------------------------------------
+# Batch specs per (arch × shape) — the dry-run inputs.
+# ---------------------------------------------------------------------------
+
+def batch_specs(cfg: ModelCfg, shape: ShapeCfg) -> dict:
+    """ParamSpec tree for the input batch of a given shape config, the
+    reference's: train/prefill a full (B, S) token batch (a VLM's tokens
+    after its ``frontend_len`` prefix embeddings, an encoder-decoder's
+    with its ``frames``), prefill without ``targets`` and ``mask``;
+    decode one token a sequence and the position."""
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        n = s - cfg.frontend_len if cfg.family == "vlm" else s
+        batch = {
+            "tokens": ParamSpec((b, n), i32, ("batch", "")),
+            "targets": ParamSpec((b, n), i32, ("batch", "")),
+            "mask": ParamSpec((b, n), torch.float32, ("batch", "")),
+        }
+        extra = {"vlm": "prefix_embeds", "encdec": "frames"}.get(cfg.family)
+        if extra:
+            batch[extra] = ParamSpec((b, cfg.frontend_len, cfg.d_model),
+                                     cfg.compute_dtype, ("batch", "", ""))
+        if shape.kind == "prefill":
+            batch.pop("targets")
+            batch.pop("mask")
+        return batch
+    # decode: one new token against a seq_len-deep cache
+    return {
+        "token": ParamSpec((b, 1), i32, ("batch", "")),
+        "pos": ParamSpec((), i32, ()),
+    }

@@ -35,8 +35,8 @@ not results.  The intra-chunk decay of SSD masks its exponent before
 ``exp``: the reference's ``where(tri, exp(diff), 0)`` overflows above the
 diagonal at 128-token chunks, and its gradient is then NaN
 (``ROADMAP.md`` queue C); the forward is the same.  The reference's
-``_constrain_act`` sharding hint is left out: it constrains nothing on
-one device.
+``_constrain_act`` sharding constraints are in place (each layer's input,
+each ``remat_groups`` group's output); they change no value.
 """
 
 from __future__ import annotations
@@ -66,6 +66,7 @@ from .layers import (
     silu,
     unembed,
 )
+from .transformer import _constrain_act, _group_end
 
 f32 = torch.float32
 
@@ -343,6 +344,7 @@ def _train_layer(cfg, params: "SSMModel", i: int, x, pos):
     """Layer ``i`` of the training forward: ``x + block(norm(x))``, then
     the shared block where one follows the layer."""
     p = params.layers[i].tensors()
+    x = _constrain_act(cfg, x)
     x = x + mamba_block(cfg, p, rms_norm(x, p["ln"]))[0]
     if _shares_attn(cfg, i):
         x, _ = params.shared_attn(x, pos)
@@ -363,11 +365,14 @@ def ssm_forward(cfg, params: SSMModel, tokens, pos, cache=None):
         for i in range(cfg.n_layers):
             x = checkpoint(_train_layer, cfg, params, i, x, pos,
                            use_reentrant=False)
+            if _group_end(cfg, i):
+                x = _constrain_act(cfg, x)
         return rms_norm(x, emb["final_norm"]), None
     attn = cache.get("attn") if cache is not None else None
     for i, blk in enumerate(params.layers):
         ssm_s = cache["ssm"][i] if cache is not None else None
         conv_s = cache["conv"][i] if cache is not None else None
+        x = _constrain_act(cfg, x)
         y, new_ssm, new_conv = mamba_block(
             cfg, blk.tensors(), rms_norm(x, blk.ln), ssm_s, conv_s
         )

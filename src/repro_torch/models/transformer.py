@@ -8,8 +8,11 @@ one :class:`~.layers.SpecModule` a layer (``ln1``, ``ln2``, ``attn``,
 ``ffn``), and the forward loops over the layers.  Under autograd with
 ``cfg.remat`` each layer runs under ``torch.utils.checkpoint``: the
 reference's ``remat_groups`` two-level scan with whole-group remat
-changes memory, not values.  The reference's ``_constrain_act`` sharding
-hint is left out: it constrains nothing outside a mesh.
+changes memory, not values.  The reference's sharding constraints are
+in place (:func:`_constrain_act` on each layer's input and at each group
+boundary of ``remat_groups``): under a mesh they resolve the layout by
+the logical rules, and they change no value
+(:func:`~repro_torch.parallel.sharding.constrain`).
 
 The KV cache is the reference's stacked one (``k``, ``v`` (L, B, T, Hs,
 D), ``positions`` (L, T), ``pos`` (L,)); each layer reads and writes its
@@ -27,7 +30,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.sharding import ParamSpec
+from ..parallel.sharding import ParamSpec, constrain
 from .layers import (
     INVALID_POS,
     SpecModule,
@@ -115,8 +118,28 @@ def _block(cfg, p, x, pos, cache, routes=None):
     return x + mlp_block(cfg, p["ffn"], ffn_in)
 
 
+def _constrain_act(cfg, x):
+    """Residual-stream sharding constraint (SP): 'seq' shards the sequence
+    over 'model' (dense archs), 'dmodel' shards d_model (MoE archs, whose
+    grouped dispatch reshapes away the seq axis)."""
+    if cfg.act_shard == "seq":
+        return constrain(x, ("batch", "sequence", ""))
+    if cfg.act_shard == "dmodel":
+        return constrain(x, ("batch", "", "tensor"))
+    return constrain(x, ("batch", "", ""))
+
+
+def _group_end(cfg, i: int) -> bool:
+    """Whether layer ``i`` closes a group of the reference's two-level
+    remat (``remat_groups`` dividing the depth), whose output it
+    constrains: the tensor the outer remat saves."""
+    g = cfg.remat_groups
+    return (g > 1 and cfg.n_layers % g == 0
+            and (i + 1) % (cfg.n_layers // g) == 0)
+
+
 def _train_block(cfg, blk: SpecModule, x, pos):
-    return _block(cfg, blk.tensors(), x, pos, None)
+    return _block(cfg, blk.tensors(), _constrain_act(cfg, x), pos, None)
 
 
 def lm_forward(cfg, params: LMModel, tokens, pos, cache=None,
@@ -130,12 +153,15 @@ def lm_forward(cfg, params: LMModel, tokens, pos, cache=None,
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
     if cache is None and cfg.remat and torch.is_grad_enabled():
-        for blk in params.layers:
+        for i, blk in enumerate(params.layers):
             x = checkpoint(_train_block, cfg, blk, x, pos, use_reentrant=False)
+            if _group_end(cfg, i):
+                x = _constrain_act(cfg, x)
     else:
         for i, blk in enumerate(params.layers):
             c_i = None if cache is None else {k: v[i] for k, v in cache.items()}
-            x = _block(cfg, blk.tensors(), x, pos, c_i, params.moe_routes)
+            x = _block(cfg, blk.tensors(), _constrain_act(cfg, x), pos, c_i,
+                       params.moe_routes)
     return rms_norm(x, emb["final_norm"]), cache
 
 

@@ -4,7 +4,8 @@
 Cross-axis tile columns of the sweep engine are independent (each CTA
 owns a column and warms its own frontiers), so a launch parallelizes over
 devices by *partitioning columns*: this module splits one cross axis of
-the grid over a :class:`~repro_torch.launch.mesh.ColumnMesh`, runs the
+the grid over a one-axis mesh
+(:func:`~repro_torch.launch.mesh.make_column_mesh`), runs the
 unmodified sweep kernel (``kernels.stencil._padded_call``) on each
 shard's column slab, and exchanges only the halo rows at shard
 boundaries.  The result is bit-equal to the single-device launch.
@@ -50,7 +51,7 @@ from ..kernels.stencil import (
     _stencil_call,
     embed_inputs,
 )
-from ..launch.mesh import ColumnMesh, make_column_mesh
+from ..launch.mesh import ModelMesh, make_column_mesh
 
 __all__ = [
     "column_launcher",
@@ -181,7 +182,7 @@ def _slab_geometry(num_shards, a, tile, offsets_w, stages_w, bcs_w, dtypes_w,
     )
 
 
-def _scatter(us, g: Slabs, mesh: ColumnMesh, fill=0) -> list[list]:
+def _scatter(us, g: Slabs, mesh: ModelMesh, fill=0) -> list[list]:
     """Each shard's launch buffers on its device, before the exchange:
     rows ``[s·C, (s+1)·C)`` of every input, padded as the single-device
     launch pads, with ``fill`` (the int8 zero point of a quantized input)

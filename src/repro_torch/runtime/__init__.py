@@ -1,9 +1,7 @@
-"""Runtime support of the port: the measurement harness and the
-trainer's fault tolerance (a copy of the JAX package's jax-free
-``runtime/fault_tolerance.py``).
-
-The JAX package's ISA-control module comes with ``ROADMAP.md`` queue A
-item 13b."""
+"""Runtime support of the port: the measurement harness, the trainer's
+fault tolerance (a copy of the JAX package's jax-free
+``runtime/fault_tolerance.py``) and the precision pins (``isa``, the
+counterpart of the reference's ``runtime/isa.py``)."""
 
 from .fault_tolerance import (  # noqa: F401
     Action,

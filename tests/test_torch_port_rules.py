@@ -67,7 +67,11 @@ def test_the_scan_sees_the_port():
                    "configs/mixtral_8x22b.py", "configs/arctic_480b.py",
                    "examples/quickstart.py", "examples/stencil_pipeline.py",
                    "examples/rk2_damped_jacobi.py",
-                   "examples/multigrid_vcycle.py"):
+                   "examples/multigrid_vcycle.py",
+                   "parallel/sharding.py", "launch/dryrun.py",
+                   "launch/op_analysis.py", "launch/roofline.py",
+                   "runtime/isa.py", "examples/train_lm.py",
+                   "examples/serve_lm.py"):
         assert f"src/repro_torch/{module}" in names, module
     assert len(list((ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))) == 3
 
@@ -84,7 +88,8 @@ def _no_cuda():
     "params_from_reference", "model_loss", "train_main",
     "opt_state_from_reference", "hybrid_model_init", "hybrid_prefill",
     "get_model", "lm_prefill", "lm_serve", "encdec_prefill", "encdec_serve",
-    "serve_main",
+    "serve_main", "make_test_mesh", "make_production_mesh", "train_lm",
+    "serve_lm",
 ])
 def test_entry_points_default_to_the_card(entry):
     _no_cuda()
@@ -165,6 +170,16 @@ def test_entry_points_default_to_the_card(entry):
         "encdec_serve": lambda: serve(ed, ed_params, toks, 2, frames=frames),
         "serve_main": lambda: serve_main(["--smoke", "--arch",
                                           "mixtral-8x22b"]),
+    })
+    # The model meshes and the LM example twins (meta only when named).
+    from repro_torch.examples import serve_lm, train_lm
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+
+    calls.update({
+        "make_test_mesh": make_test_mesh,
+        "make_production_mesh": make_production_mesh,
+        "train_lm": lambda: train_lm.main(["--smoke", "--steps", "1"]),
+        "serve_lm": lambda: serve_lm.main([]),
     })
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -42,7 +42,11 @@ from repro_torch import ir as tir  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
 from repro_torch.kernels import stencil as tst  # noqa: E402
-from repro_torch.launch.mesh import ColumnMesh, make_column_mesh  # noqa: E402
+from repro_torch.launch.mesh import (  # noqa: E402
+    ModelMesh,
+    make_column_mesh,
+    make_test_mesh,
+)
 from repro_torch.parallel import shard_columns as tsc  # noqa: E402
 from repro_torch.plan import (  # noqa: E402
     PlanCache,
@@ -494,12 +498,16 @@ def test_mesh_refusals():
         make_column_mesh(0, device="cpu")
     x = _u((16, 24, 130))
     kw = dict(tile=(4, 8, 64), sweep_axis=0, **CPU)
-    with pytest.raises(TypeError, match="ColumnMesh"):
+    with pytest.raises(TypeError, match="one-axis mesh"):
         tst.stencil_pallas(x, OFFS, WEIGHTS, mesh=object(), **kw)
+    with pytest.raises(TypeError, match="one-axis mesh"):
+        tst.stencil_pallas(x, OFFS, WEIGHTS,
+                           mesh=make_test_mesh(device="cpu"), **kw)
     with pytest.raises(ValueError, match="contradicts"):
         tst.stencil_pallas(x, OFFS, WEIGHTS, num_shards=3,
                            mesh=make_column_mesh(2, device="cpu"), **kw)
-    assert isinstance(make_column_mesh(3, device="cpu"), ColumnMesh)
+    mesh = make_column_mesh(3, device="cpu")
+    assert isinstance(mesh, ModelMesh) and mesh.shape == {"columns": 3}
 
 
 @pytest.mark.cuda

@@ -525,20 +525,23 @@ def test_sharded_fingerprint_keys_on_the_mesh_layout():
     on one card and 4 over 4 cards get different fingerprints, so neither
     record is served to the other's call; which cards does not matter
     (cards 4-7 read as 0-3); an unsharded fingerprint is unchanged."""
-    from repro_torch.launch.mesh import ColumnMesh, make_column_mesh
+    from repro_torch.launch.mesh import ModelMesh, make_column_mesh
     from repro_torch.plan.tune import mesh_layout
 
+    def column_mesh(devs):
+        return ModelMesh(("columns",), (len(devs),), devs)
+
     cuda = [torch.device("cuda", i) for i in range(8)]
-    co = ColumnMesh((cuda[0],) * 4)
-    spread = ColumnMesh(tuple(cuda[:4]))
-    other = ColumnMesh(tuple(cuda[4:]))
-    pairs = ColumnMesh((cuda[0], cuda[0], cuda[1], cuda[1]))
+    co = column_mesh((cuda[0],) * 4)
+    spread = column_mesh(tuple(cuda[:4]))
+    other = column_mesh(tuple(cuda[4:]))
+    pairs = column_mesh((cuda[0], cuda[0], cuda[1], cuda[1]))
     assert mesh_layout(co) == "0.0.0.0"
     assert mesh_layout(spread) == mesh_layout(other) == "0.1.2.3"
     assert mesh_layout(pairs) == "0.0.1.1"
     assert mesh_layout(None, 4) == "0.1.2.3"  # the mesh a launch builds
     assert mesh_layout(None, 1) is None
-    assert mesh_layout(ColumnMesh((cuda[0],))) is None
+    assert mesh_layout(column_mesh((cuda[0],))) is None
     base = backend_fingerprint("cpu")
     assert base == (f"{device_fingerprint('cpu')}|kernels="
                     f"{tune_mod._kernels_hash()}")
