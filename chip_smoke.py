@@ -274,21 +274,20 @@ def main() -> None:
     pin_precision()
     dev = torch.device("cuda")
     card_line = card()
-    kernels = {
-        "sweep_apply": sweep.sweep_apply,
-        "sweep_chain": sweep.sweep_chain,
-        "conv1d": conv1d.causal_conv1d,
-    }
+    kernels = ("sweep_apply", "sweep_chain", "conv1d")
+    since: dict = {}
 
     def emit(obj) -> None:
         print(json.dumps(obj), flush=True)
 
     def reset() -> None:
-        for fn in kernels.values():
-            fn.launches = 0
+        since.clear()
+        since.update(obs.totals())
 
     def counts() -> dict:
-        return {name: fn.launches for name, fn in kernels.items()}
+        now = obs.totals()
+        return {name: now[f"launches.{name}"] - since.get(f"launches.{name}", 0)
+                for name in kernels}
 
     def time_ms(fn, reps=10, warmup=2) -> float:
         for _ in range(warmup):

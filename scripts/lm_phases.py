@@ -46,8 +46,8 @@ def main(argv=None) -> int:
     import torch
 
     import chip_smoke as cs
+    from repro_torch import obs
     from repro_torch.configs import get_config
-    from repro_torch.kernels import conv1d, sweep
     from repro_torch.runtime.isa import pin_precision
 
     if not torch.cuda.is_available():
@@ -57,9 +57,8 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     card_line = cs.card()
     print(card_line, torch.__version__, torch.version.cuda, flush=True)
-    kernels = {"sweep_apply": sweep.sweep_apply,
-               "sweep_chain": sweep.sweep_chain,
-               "conv1d": conv1d.causal_conv1d}
+    kernels = ("sweep_apply", "sweep_chain", "conv1d")
+    since: dict = {}
     out = open(args.out, "a") if args.out else None
 
     def emit(rec):
@@ -70,11 +69,13 @@ def main(argv=None) -> int:
             out.flush()
 
     def reset():
-        for fn in kernels.values():
-            fn.launches = 0
+        since.clear()
+        since.update(obs.totals())
 
     def counts():
-        return {n: fn.launches for n, fn in kernels.items()}
+        now = obs.totals()
+        return {n: now[f"launches.{n}"] - since.get(f"launches.{n}", 0)
+                for n in kernels}
 
     def max_err(a, b):
         return float((a.float() - b.float()).abs().max())

@@ -13,11 +13,16 @@ shapes (``apply_f32_512``: the 13-point star once on a 512³ f32 grid at
 tile (8, 16, 32); ``chain_T3_512``: the star three times, fused, at tile
 (4, 16, 32)) it prints one JSON line with the card, and for each shape
 the median over ``--rounds`` rounds of: ``ms``, one kernel wrapper call
-between CUDA events (the smoke's ``ms``, which runs no code of
-``repro_torch.obs``), and ``call_ms``, one frontend call
+between CUDA events (the smoke's ``ms``; the wrapper is the call's
+``sweep_launch`` stage), and ``call_ms``, one frontend call
 (``stencil_pallas`` / ``stencil_iterate`` with the tile), which runs the
-hooks' predicate checks once a launch.  Each round's figure is the median
-of ``--reps`` calls after 2 warm-up calls.
+hooks' predicate checks once a launch and the always-on stage timers.
+Each round's figure is the median of ``--reps`` calls after 2 warm-up
+calls.  ``stage_timers_us`` is the host cost of the always-on stage
+timers of one call as the benchmark's blocks cell makes it (the root
+stage, five stages, five counter bumps; ``repro_torch.obs.stages``),
+timed alone over 20,000 calls a round, the median of ``--rounds``
+rounds (``null`` for a checkout without them).
 """
 
 from __future__ import annotations
@@ -30,6 +35,39 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+def stage_timers_us(rounds: int, n: int = 20_000):
+    """Median over ``rounds`` of the stage timers' host µs a call."""
+    import time
+
+    from repro_torch import obs
+
+    if not hasattr(obs, "call"):
+        return None
+    stages = [obs.stage(s) for s in ("frontend", "decide", "launch_buffers",
+                                     "sweep_launch", "trim")]
+    counts = [obs.counter(c) for c in (
+        "plan_memo_hit", "device_ops.fill", "device_ops.copy_in",
+        "launch_table_hit", "device_ops.kernel")]
+
+    def one():
+        with obs.call():
+            for s in stages:
+                s.begin()
+                s.end()
+            for c in counts:
+                obs.count(c)
+
+    for _ in range(1000):
+        one()
+    per = []
+    for _ in range(rounds):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            one()
+        per.append((time.perf_counter() - t0) / n * 1e6)
+    return statistics.median(per)
 
 
 def main() -> int:
@@ -71,12 +109,14 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
+    out = {"label": args.label, "src": args.src, "card": card,
+           "stage_timers_us": stage_timers_us(args.rounds)}
+
     def spec(o, w):
         return (tuple(map(tuple, o.tolist())), tuple(float(v) for v in w))
 
     offs13, w13 = ref.star_weights_2nd_order(3, 2)
     gen = torch.Generator(device=dev)
-    out = {"label": args.label, "src": args.src, "card": card}
 
     gen.manual_seed(0)
     u = torch.randn((512,) * 3, generator=gen, device=dev)

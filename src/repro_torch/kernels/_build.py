@@ -23,6 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
+from .. import obs
 from ..runtime.isa import NVCC_FLAGS  # the flags' home
 
 __all__ = ["BUILD_DIR", "CSRC", "NVCC_FLAGS", "PTXAS", "build_all", "load"]
@@ -112,9 +113,11 @@ def build_all(names=None) -> dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built at first use."""
+    """The loaded library of kernel ``name``, built at first use (a load
+    makes the open port call cold, ``repro_torch.obs.mark_cold``)."""
     lib = _LIBS.get(name)
     if lib is None:
+        obs.mark_cold()
         path = build_all([name])[name]
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib

@@ -21,7 +21,8 @@ C = 5120 + 2·128 = 5376, bf16) reads x and writes out once, 2 × 88.08 MB,
 0.0526 ms at 3.35 TB/s; it runs once per layer, 64 times a prefill.
 
 :func:`causal_conv1d_launch` is the kernel's wrapper: on a CUDA tensor it
-launches the kernel (and counts the launch in ``causal_conv1d.launches``)
+launches the kernel (and counts the launch in ``repro_torch.obs.totals()``
+as ``launches.conv1d``)
 or raises; on a CPU tensor it runs :func:`causal_conv1d_plain`, the plain
 PyTorch version beside it (``_prepend_halo`` + the unrolled f32 loop +
 silu), which the tests use.  :func:`causal_conv1d` is the entry point with
@@ -39,8 +40,10 @@ import functools
 
 import torch
 
-from .. import resolve_device
+from .. import obs, resolve_device
 from . import _build
+
+_LAUNCHES = obs.counter("launches.conv1d")
 
 __all__ = [
     "causal_conv1d",
@@ -216,7 +219,7 @@ def causal_conv1d_launch(x, conv_w, conv_b, tile_s, state=None):
         )
     if rc != 0:
         raise RuntimeError(f"causal_conv1d: CUDA launch failed with cudaError {rc}")
-    causal_conv1d.launches += 1
+    obs.count(_LAUNCHES)
     return out
 
 
@@ -310,5 +313,3 @@ def causal_conv1d(x, conv_w, conv_b, tile_s=None, state=None, device=None):
         x, conv_w, conv_b, int(tile_s), torch.as_tensor(state).to(dev)
     )
 
-
-causal_conv1d.launches = 0

@@ -25,7 +25,11 @@ measured winner, a miss races the planner's top candidates on the call's
 device first.  ``trace="path.json"`` records the call — plan, cache
 lookups, tune race and one ``kernel_launch`` span per launch with the
 launch's modelled bytes, flops and ms and its frontier shared memory —
-into a Chrome ``trace_event`` file (:mod:`repro_torch.obs`).
+into a Chrome ``trace_event`` file (:mod:`repro_torch.obs`).  Traced or
+not, each call is timed in stages (``frontend``, ``decide``, and per
+launch ``launch_buffers``, ``sweep_launch``, ``trim``) and counts the
+device operations it enqueues, into ``repro_torch.obs.totals()``
+(:mod:`repro_torch.obs.stages`).
 
 Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
 :class:`~repro_torch.plan.PlanCache` keeps plans across processes)
@@ -57,6 +61,17 @@ from ..core.tiling import (
 )
 from ..launch.mesh import ModelMesh
 from .sweep import hopper_device, sweep_apply, sweep_chain
+
+# The call's stage timers and device-operation counters (always on;
+# ``repro_torch.obs.stages``).
+_FRONTEND = obs.stage("frontend")
+_DECIDE = obs.stage("decide")
+_BUFFERS = obs.stage("launch_buffers")
+_TRIM = obs.stage("trim")
+_FILL = obs.counter("device_ops.fill")
+_COPY_IN = obs.counter("device_ops.copy_in")
+_WRAP = obs.counter("device_ops.wrap")
+_TRIM_OP = obs.counter("device_ops.trim")
 
 __all__ = [
     "stencil_pallas",
@@ -186,13 +201,18 @@ def embed_inputs(us, pads, pad_free=False, wrap=None, fill=0):
     fills each ghost band from the far side of the domain, axis by axis in
     the reference's order: axis k's copies read the ghost rows of axes < k
     already filled, which reproduces ``np.pad(mode="wrap")``'s corners.
-    Round-up slack past the high ghost stays at ``fill``."""
+    Round-up slack past the high ghost stays at ``fill``.
+
+    Counts each device operation it enqueues (``device_ops.fill``,
+    ``.copy_in``, and ``.wrap``: a band's gather and its copy)."""
     del pad_free
     bufs = []
     for u in us:
         shape = tuple(int(n) + lo + hi for (lo, hi), n in zip(pads, u.shape))
         buf = torch.full(shape, fill, dtype=u.dtype, device=u.device)
         buf[tuple(slice(lo, lo + int(n)) for (lo, _), n in zip(pads, u.shape))] = u
+        obs.count(_FILL)
+        obs.count(_COPY_IN)
         if wrap is not None:
             d = u.ndim
             for i, (lo, hi) in enumerate(wrap):
@@ -208,6 +228,7 @@ def embed_inputs(us, pads, pad_free=False, wrap=None, fill=0):
                     si = [slice(None)] * d
                     di[i], si[i] = dst, src
                     buf[tuple(di)] = buf[tuple(si)].clone()
+                    obs.count(_WRAP, 2)
         bufs.append(buf)
     return bufs
 
@@ -219,22 +240,24 @@ def _launch_inputs(us, offsets_w, tile, stages_w=None, bcs_w=None,
     the lo halo on the low side and the hi halo plus the round-up to the
     tile on the high side; under periodic wrap the halos hold the far
     side's values, and an int8 input (``in_quant``) is padded with its
-    zero point."""
-    offsets, weights, stages, lo_w, hi_w = _launch_geometry(
-        offsets_w, stages_w, tile, bcs_w, dtypes_w, quants_w
-    )
-    pads = [
-        (l, h + _round_up(int(n), t) - int(n))
-        for l, h, n, t in zip(lo_w, hi_w, us[0].shape, tile)
-    ]
-    periodic = bcs_w is not None and any(
-        bc is not None and bc[0] == "periodic" for bc in bcs_w
-    )
-    ins = embed_inputs(
-        us, pads,
-        wrap=tuple(zip(lo_w, hi_w)) if periodic else None,
-        fill=int(in_quant[1]) if in_quant is not None else 0,
-    )
+    zero point.  This is the call's ``launch_buffers`` stage: the
+    launch's static geometry and :func:`embed_inputs`' enqueue."""
+    with _BUFFERS:
+        offsets, weights, stages, lo_w, hi_w = _launch_geometry(
+            offsets_w, stages_w, tile, bcs_w, dtypes_w, quants_w
+        )
+        pads = [
+            (l, h + _round_up(int(n), t) - int(n))
+            for l, h, n, t in zip(lo_w, hi_w, us[0].shape, tile)
+        ]
+        periodic = bcs_w is not None and any(
+            bc is not None and bc[0] == "periodic" for bc in bcs_w
+        )
+        ins = embed_inputs(
+            us, pads,
+            wrap=tuple(zip(lo_w, hi_w)) if periodic else None,
+            fill=int(in_quant[1]) if in_quant is not None else 0,
+        )
     return ins, offsets, weights, stages, lo_w, hi_w
 
 
@@ -262,7 +285,12 @@ def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
         pipelined, tuple(u0.shape), window_kind=window_kind,
         in_quant=in_quant,
     )
-    return out[tuple(slice(0, n) for n in u0.shape)].contiguous()
+    with _TRIM:
+        out = out[tuple(slice(0, n) for n in u0.shape)]
+        if not out.is_contiguous():
+            out = out.contiguous()
+            obs.count(_TRIM_OP)
+    return out
 
 
 def _dtype_name(dt) -> str:
@@ -498,6 +526,22 @@ def multi_stencil_pallas(
                 program=program, dtypes=dtypes, window_kind=window_kind,
                 device=device,
             )
+    with obs.call():
+        return _multi_stencil(
+            us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
+            pipelined, plan, time_steps, stages, num_shards, shard_axis,
+            mesh, tune, program, dtypes, window_kind, device,
+        )
+
+
+def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
+                   sweep_axis, pipelined, plan, time_steps, stages,
+                   num_shards, shard_axis, mesh, tune, program, dtypes,
+                   window_kind, device):
+    """:func:`multi_stencil_pallas`'s body, inside the call's root stage:
+    the ``frontend`` (inputs, program, lowering), the ``decide`` stage
+    (the launch decision) and the launches."""
+    _FRONTEND.begin()
     if tune and (plan is not None or tile is not None):
         raise ValueError(
             "tune= asks the measured tune loop for the launch decision, but "
@@ -620,6 +664,7 @@ def multi_stencil_pallas(
         req_dtypes = None
         offsets_list = [o for o, _ in offsets_w]
     # -- the launch decision: explicit tile, precompiled plan, or planner --
+    _FRONTEND.then(_DECIDE)
     explicit_sweep = sweep_axis is not None
     explicit_shard = shard_axis is not None
     if mesh is not None and not (isinstance(mesh, ModelMesh)
@@ -709,12 +754,16 @@ def multi_stencil_pallas(
                                    shard_axis=shard_axis, mesh=mesh)
     else:
         launcher = _stencil_call
+    _DECIDE.end()
+    summary = []  # the program's summary, made once a call (traced only)
 
     def launch_span(n_run, run=None, run_dts=None, run_qs=None):
         # Only called with recording on: prices this launch's slice of the
         # plan's whole-chain model (n_run of T stages) and bumps the
         # counters ``repro_torch.obs.report --check`` reconciles against
         # the spans.
+        if not summary:
+            summary.append(ir.summarize_program(prog))
         p = resolved_plan
         if p is not None:
             share = n_run / max(T, 1)
@@ -748,7 +797,7 @@ def multi_stencil_pallas(
             plan_key=plan_key, tile=list(tile), sweep_axis=sweep_axis,
             fused_depth=int(depth), steps=n_run, num_shards=num_shards,
             device=us[0].device.type, modeled_bytes=mb, modeled_flops=mf,
-            modeled_ms=mms, program=ir.summarize_program(prog),
+            modeled_ms=mms, program=summary[0],
             window_kind=window_kind,
             stage_dtypes=(list(run_dts) if run_dts is not None else None),
             ring_smem_bytes=rsb,

@@ -12,8 +12,12 @@ Both take the *padded* launch buffers the host side builds
 (``lo_w + k·tile + hi_w`` per dim) and return the padded result
 (``k·tile`` per dim).  On a CPU tensor a wrapper runs its plain version;
 on a CUDA tensor it launches its kernel or raises — there is no fallback.
-Each wrapper carries an integer ``launches`` that counts kernel launches
-and nothing else.
+Each wrapper is the call's ``sweep_launch`` stage and counts its kernel
+in ``repro_torch.obs.totals()``: ``device_ops.kernel`` for either
+version, ``launches.sweep_apply`` / ``launches.sweep_chain`` for a launch
+on the card alone, and ``launch_table_hit`` / ``launch_table_miss`` for
+the card's launch tables (a miss, or a kernel library's load, makes the
+call cold).
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.tiling import (
     H100_SXM,
     SMEM_BLOCK_LIMIT,
@@ -66,6 +71,13 @@ _MAX_SCHED = 96
 _MAX_BC = 4096
 _MAX_LISTED = 65535  # rows of the class lists (unsigned short bounds)
 _BC_ROW = 8  # int32 per correction term; see _bc_table
+
+_SWEEP_LAUNCH = obs.stage("sweep_launch")
+_KERNEL = obs.counter("device_ops.kernel")
+_APPLY_LAUNCHES = obs.counter("launches.sweep_apply")
+_CHAIN_LAUNCHES = obs.counter("launches.sweep_chain")
+_TABLE_HIT = obs.counter("launch_table_hit")
+_TABLE_MISS = obs.counter("launch_table_miss")
 
 
 def _f32(w) -> float:
@@ -195,6 +207,7 @@ def _entry(name: str, what: str = "launch"):
     """The C entry point ``<name>_<what>`` of kernel ``name``, typed."""
     fn = _ENTRIES.get((name, what))
     if fn is None:
+        obs.mark_cold()
         fn = getattr(_build.load(name), f"{name}_{what}")
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[f"{name}_{what}"]
@@ -298,10 +311,14 @@ def _cached_plan(key, build) -> dict:
     use; the oldest of :data:`_PLANS_MAX` plans is dropped first."""
     plan = _PLANS.get(key)
     if plan is None:
+        obs.count(_TABLE_MISS)
+        obs.mark_cold()
         plan = build()
         if len(_PLANS) >= _PLANS_MAX:
             _PLANS.pop(next(iter(_PLANS)))
         _PLANS[key] = plan
+    else:
+        obs.count(_TABLE_HIT)
     return plan
 
 
@@ -313,29 +330,29 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     window halo the buffers carry; the result is the padded output.  On
     the card a launch's arrays are built once per geometry and kept
     (:func:`_apply_plan`)."""
-    ins = list(ins)
-    _check(ins, lo_w, hi_w, tile)
-    args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
-    dev = ins[0].device
-    if dev.type == "cpu":
-        _apply_plan(*args)
-        return sweep_apply_plain(*args)
-    if dev.type != "cuda":
-        raise RuntimeError(f"sweep_apply: unsupported device {dev}")
-    plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
-    out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
-    fn = _entry("sweep_apply")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(plan["geom"],
-                _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
-                out.data_ptr(), *plan["taps"], plan["smem"], stream)
-    _raise_rc("sweep_apply", rc)
-    sweep_apply.launches += 1
-    return out
-
-
-sweep_apply.launches = 0
+    with _SWEEP_LAUNCH:
+        ins = list(ins)
+        _check(ins, lo_w, hi_w, tile)
+        args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
+        dev = ins[0].device
+        if dev.type == "cpu":
+            _apply_plan(*args)
+            obs.count(_KERNEL)
+            return sweep_apply_plain(*args)
+        if dev.type != "cuda":
+            raise RuntimeError(f"sweep_apply: unsupported device {dev}")
+        plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
+        out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
+        fn = _entry("sweep_apply")
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = fn(plan["geom"],
+                    _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
+                    out.data_ptr(), *plan["taps"], plan["smem"], stream)
+        _raise_rc("sweep_apply", rc)
+        obs.count(_KERNEL)
+        obs.count(_APPLY_LAUNCHES)
+        return out
 
 
 def apply_copy16(ins, offsets, weights, lo_w, hi_w, tile, sweep,
@@ -901,35 +918,36 @@ def sweep_chain(x, stages, lo_w, hi_w, tile, sweep, pipelined=True,
     On the card a launch's tables are built once per geometry and kept
     (:func:`_chain_plan`): a repeated launch allocates its output and
     launches."""
-    args = (x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
-            n_true, dom, in_quant)
-    if x.device.type == "cuda":
-        plan = _cached_plan(_plan_key(*args), lambda: _chain_plan(*args))
-    else:
-        plan = _chain_plan(*args)
-        if x.device.type != "cpu":
-            raise RuntimeError(f"sweep_chain: unsupported device {x.device}")
-        return sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep,
-                                 pipelined, window_kind, plan["n_true"], dom,
-                                 in_quant)
-    out = torch.empty(plan["out_shape"], dtype=plan["out_dtype"],
-                      device=x.device)
-    fn = _entry("sweep_chain")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device)
-        rc = fn(*plan["arrays"], plan["bc"].data_ptr(), plan["bounds"],
-                x.data_ptr(), out.data_ptr(), plan["smem"],
-                stream.cuda_stream)
-    _raise_rc("sweep_chain", rc)
-    # The kept rows may be dropped from the cache, and their memory reused
-    # on the stream that allocated them, while this launch still reads
-    # them on another: the allocator holds them until it is done.
-    plan["bc"].record_stream(stream)
-    sweep_chain.launches += 1
-    return out
-
-
-sweep_chain.launches = 0
+    with _SWEEP_LAUNCH:
+        args = (x, stages, lo_w, hi_w, tile, sweep, pipelined, window_kind,
+                n_true, dom, in_quant)
+        if x.device.type == "cuda":
+            plan = _cached_plan(_plan_key(*args), lambda: _chain_plan(*args))
+        else:
+            plan = _chain_plan(*args)
+            if x.device.type != "cpu":
+                raise RuntimeError(
+                    f"sweep_chain: unsupported device {x.device}")
+            obs.count(_KERNEL)
+            return sweep_chain_plain(x, stages, lo_w, hi_w, tile, sweep,
+                                     pipelined, window_kind, plan["n_true"],
+                                     dom, in_quant)
+        out = torch.empty(plan["out_shape"], dtype=plan["out_dtype"],
+                          device=x.device)
+        fn = _entry("sweep_chain")
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device)
+            rc = fn(*plan["arrays"], plan["bc"].data_ptr(), plan["bounds"],
+                    x.data_ptr(), out.data_ptr(), plan["smem"],
+                    stream.cuda_stream)
+        _raise_rc("sweep_chain", rc)
+        # The kept rows may be dropped from the cache, and their memory
+        # reused on the stream that allocated them, while this launch still
+        # reads them on another: the allocator holds them until it is done.
+        plan["bc"].record_stream(stream)
+        obs.count(_KERNEL)
+        obs.count(_CHAIN_LAUNCHES)
+        return out
 
 
 def chain_occupancy(in_dtype, smem_bytes) -> int:

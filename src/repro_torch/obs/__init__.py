@@ -8,7 +8,11 @@ check, no allocation):
 * ``obs.add(name, value)`` — bump a counter,
 * ``obs.event(name, **args)`` — instant event,
 * ``obs.recording(path)`` — scoped recorder, trace written on exit,
-* ``Recorder`` — the span/counter/event store itself.
+* ``Recorder`` — the span/counter/event store itself,
+* ``obs.call()`` / ``obs.stage(name)`` / ``obs.count(obs.counter(name))``
+  / ``obs.mark_cold()`` — the always-on stage timers and counters of the
+  stencil call (:mod:`repro_torch.obs.stages`), read by ``obs.totals()``
+  whether or not a recorder is installed.
 
 Setting ``REPRO_TORCH_TRACE=path.json`` before this package is first
 imported installs a process-wide recorder flushed at interpreter exit.
@@ -29,6 +33,15 @@ from .recorder import (  # noqa: F401
     recording,
     span,
 )
+from .stages import (  # noqa: F401
+    call,
+    count,
+    counter,
+    mark_cold,
+    reset_totals,
+    stage,
+    totals,
+)
 from .trace_event import (  # noqa: F401
     load_trace,
     to_trace_events,
@@ -42,12 +55,19 @@ __all__ = [
     "Span",
     "active",
     "add",
+    "call",
+    "count",
+    "counter",
     "enabled",
     "event",
     "load_trace",
+    "mark_cold",
     "recording",
+    "reset_totals",
     "span",
+    "stage",
     "to_trace_events",
+    "totals",
     "validate_trace",
     "write_trace",
 ]

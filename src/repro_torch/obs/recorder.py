@@ -13,12 +13,15 @@ modeled_bytes, modeled_flops, ring_smem_bytes, measured_ns, ...) into one
 repro_torch.obs.report``.
 
 **Disabled is the default and costs one predicate check.**  The
-module-level :func:`span` / :func:`add` / :func:`event` helpers read one
-module global; when no recorder is installed they return a shared
-singleton null span (or ``None``) without allocating anything, so
-instrumented hot paths — the warm plan-cache hit, the kernel launch loop —
-pay a pointer compare.  Hot callers that would build a kwargs dict for
-span arguments guard with ``if obs.enabled():`` first.
+module-level :func:`span` / :func:`event` helpers read one module
+global; when no recorder is installed they return a shared singleton
+null span (or ``None``) without allocating anything, so instrumented hot
+paths — the warm plan-cache hit, the kernel launch loop — pay a pointer
+compare.  Hot callers that would build a kwargs dict for span arguments
+guard with ``if obs.enabled():`` first.  :func:`add` also accumulates
+into the always-on totals of :mod:`repro_torch.obs.stages`, whose stage
+timers run whether or not a recorder is installed and go into the
+recorder as spans when one is.
 
 Enabling, in precedence order (innermost wins; recorders nest):
 
@@ -47,6 +50,8 @@ import threading
 import time
 from contextlib import contextmanager
 
+from . import stages as _stages
+
 __all__ = [
     "Recorder",
     "Span",
@@ -67,6 +72,20 @@ _active: "Recorder | None" = None
 
 def _now_us() -> float:
     return time.perf_counter_ns() / 1e3
+
+
+def _unix_offset_ns() -> int:
+    """``time.time_ns() - time.perf_counter_ns()``, from the tightest of a
+    few bracketed readings: adding it to a ``perf_counter_ns`` stamp gives
+    the Unix-ns clock that ``torch.profiler`` stamps its events on."""
+    best = None
+    for _ in range(5):
+        a = time.perf_counter_ns()
+        t = time.time_ns()
+        b = time.perf_counter_ns()
+        if best is None or b - a < best[0]:
+            best = (b - a, t - (a + b) // 2)
+    return best[1]
 
 
 class _NullSpan:
@@ -150,8 +169,11 @@ class Recorder:
     """Process-local span/counter/event store for one recording session.
 
     Thread-safe (appends under one lock).  ``counters`` are monotone
-    totals; every update is also sampled with a timestamp so the Chrome
-    exporter can emit ``ph: "C"`` counter tracks.  ``path`` is where
+    totals; every :meth:`add` is also sampled with a timestamp so the
+    Chrome exporter can emit ``ph: "C"`` counter tracks (the always-on
+    counters of :mod:`~repro_torch.obs.stages` arrive by :meth:`tally`,
+    without samples).  ``t0_unix_ns`` is the recorder's start on the
+    Unix-ns clock (:func:`_unix_offset_ns`).  ``path`` is where
     :meth:`write` puts the trace by default (also used by the
     ``REPRO_TORCH_TRACE`` atexit flush).  ``profiler_bridge`` opens a
     ``torch.profiler.record_function`` range around each span.
@@ -165,7 +187,9 @@ class Recorder:
         self.counters: dict[str, int] = {}
         self.counter_samples: list[tuple[float, str, int]] = []
         self.events: list[dict] = []
-        self.t0_us = _now_us()
+        t0_ns = time.perf_counter_ns()
+        self.t0_us = t0_ns / 1e3
+        self.t0_unix_ns = t0_ns + _unix_offset_ns()
         self._lock = threading.Lock()
 
     # -- recording ---------------------------------------------------------
@@ -183,6 +207,21 @@ class Recorder:
             self.counters[name] = total
             self.counter_samples.append((_now_us(), name, total))
         return total
+
+    def tally(self, name: str, value: int = 1) -> None:
+        """Bump a counter without a sample (the always-on counters)."""
+        with self._lock:
+            self.counters[name] = self.counters.get(name, 0) + int(value)
+
+    def _stage_span(self, name: str, t0_ns: int, t1_ns: int, call: int,
+                    parent: str | None) -> None:
+        """File one closed stage (``repro_torch.obs.stages``) as a span."""
+        sp = Span(self, name, "repro_torch.stage",
+                  {"call": call, "parent": parent})
+        sp.ts_us = t0_ns / 1e3
+        sp.dur_us = (t1_ns - t0_ns) / 1e3
+        sp.tid = threading.get_ident()
+        self._finish(sp)
 
     def event(self, name: str, cat: str = "repro_torch", **args) -> None:
         with self._lock:
@@ -232,7 +271,9 @@ def span(name: str, cat: str = "repro_torch", **args):
 
 
 def add(name: str, value: int = 1) -> None:
-    """Bump a counter on the active recorder; no-op when disabled."""
+    """Bump a counter in the always-on totals and on the active recorder,
+    if any."""
+    _stages.add_named(name, value)
     rec = _active
     if rec is None:
         return
@@ -253,6 +294,7 @@ def _install(rec: Recorder | None) -> Recorder | None:
     global _active
     prev = _active
     _active = rec
+    _stages._rec = rec
     return prev
 
 

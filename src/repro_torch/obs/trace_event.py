@@ -9,7 +9,10 @@ One recorder session becomes one JSON object in the Trace Event Format
 * events      → ``ph: "i"`` instant events,
 * plus ``ph: "M"`` process/thread metadata so the timeline is labeled.
 
-Timestamps are rebased to the recorder's start so traces begin near 0.
+Timestamps are rebased to the recorder's start so traces begin near 0;
+``otherData.t0_unix_ns`` is that start on the Unix-ns clock that
+``torch.profiler`` stamps its events on, so a span's ``ts`` (µs) sits at
+``t0_unix_ns + 1000 * ts`` there.
 :func:`validate_trace` is the schema check the CI obs smoke and the
 report CLI share (the port's trace files also pass the JAX package's
 own check): it asserts the structural invariants Perfetto relies
@@ -92,6 +95,7 @@ def to_trace_events(rec: "Recorder") -> dict[str, Any]:
         "displayTimeUnit": "ms",
         "otherData": {
             "producer": "repro_torch.obs",
+            "t0_unix_ns": int(rec.t0_unix_ns),
             "counters": dict(sorted(rec.counters.items())),
         },
     }

@@ -32,7 +32,11 @@ Per launch of a (possibly fused) stencil program:
 * **Gather**: each shard's rows are copied back onto the input's device
   and trimmed to the grid.
 
-Shards that share a card launch in order on its current stream.
+Shards that share a card launch in order on its current stream.  The
+scatter and the exchange are the call's ``launch_buffers`` stage and the
+gather its ``trim`` (``repro_torch.obs.stages``); each copy they enqueue
+counts in ``device_ops`` (a copy to another card as ``copy_in``, an
+exchanged band as ``wrap``, a gathered shard as ``trim``).
 """
 
 from __future__ import annotations
@@ -52,6 +56,12 @@ from ..kernels.stencil import (
     embed_inputs,
 )
 from ..launch.mesh import ModelMesh, make_column_mesh
+
+_BUFFERS = obs.stage("launch_buffers")
+_TRIM = obs.stage("trim")
+_COPY_IN = obs.counter("device_ops.copy_in")
+_WRAP = obs.counter("device_ops.wrap")
+_TRIM_OP = obs.counter("device_ops.trim")
 
 __all__ = [
     "column_launcher",
@@ -196,6 +206,8 @@ def _scatter(us, g: Slabs, mesh: ModelMesh, fill=0) -> list[list]:
         pads = list(g.pads)
         pads[a] = (g.pads[a][0], g.pads[a][1] + C - n)
         slabs = [u.narrow(a, r0, n).to(dev) for u in us]
+        if slabs[0].device != us[0].device:
+            obs.count(_COPY_IN, len(us))
         out.append(embed_inputs(slabs, pads, wrap=g.wrap, fill=fill))
     return out
 
@@ -220,10 +232,12 @@ def exchange_halos(bufs, g: Slabs) -> None:
         for x_dst, x_src in zip(bufs[dst], bufs[src]):
             x_dst.narrow(a, 0, lo_a).copy_(
                 x_src.narrow(a, end(src), lo_a))
+            obs.count(_WRAP)
     for src, dst in g.bwd:
         for x_dst, x_src in zip(bufs[dst], bufs[src]):
             x_dst.narrow(a, lo_a + end(dst), hi_a).copy_(
                 x_src.narrow(a, lo_a, hi_a))
+            obs.count(_WRAP)
 
 
 def _gather(outs, g: Slabs, shape, device) -> torch.Tensor:
@@ -237,6 +251,7 @@ def _gather(outs, g: Slabs, shape, device) -> torch.Tensor:
         src = o[tuple(slice(0, n if i == a else shape[i])
                       for i in range(len(shape)))]
         out.narrow(a, r0, n).copy_(src)
+        obs.count(_TRIM_OP)
     return out
 
 
@@ -287,8 +302,9 @@ def sharded_stencil_call(
 
     def run():
         fill = int(in_quant[1]) if in_quant is not None else 0
-        bufs = _scatter(us, g, mesh, fill)
-        exchange_halos(bufs, g)
+        with _BUFFERS:
+            bufs = _scatter(us, g, mesh, fill)
+            exchange_halos(bufs, g)
         outs = []
         for s, ins in enumerate(bufs):
             dom = [0] * d
@@ -298,7 +314,8 @@ def sharded_stencil_call(
                 tile, sweep, pipelined, shape, window_kind=window_kind,
                 in_quant=in_quant,
             ))
-        return _gather(outs, g, shape, u0.device)
+        with _TRIM:
+            return _gather(outs, g, shape, u0.device)
 
     if not obs.enabled():
         return run()

@@ -153,6 +153,7 @@ class PlanCache:
             self.stats["hits"] += 1
             self.stats["mem_hits"] += 1
             return plan
+        obs.mark_cold()  # the open port call reads the disk or plans
         if self.dir is not None:
             path = self._path(key)
             raw = None

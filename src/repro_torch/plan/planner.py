@@ -90,6 +90,8 @@ __all__ = ["Planner", "default_planner", "plan_stencil"]
 
 # The chain kernel's fixed tables (csrc/sweep_chain.cu kMaxStages,
 # kMaxTaps): a deeper or wider fused launch is never a candidate.
+_MEMO_HIT = obs.counter("plan_memo_hit")
+_MEMO_MISS = obs.counter("plan_memo_miss")
 _CHAIN_MAX_STAGES = 8
 _CHAIN_MAX_TAPS = 160
 
@@ -306,15 +308,7 @@ class Planner:
         if obs.enabled():
             with obs.span("plan", key=key) as sp:
                 plan = self._plan_resolve(request, key)
-                sp.set(
-                    tuned=self.last_plan_tuned,
-                    tile=list(plan.tile),
-                    sweep_axis=plan.sweep_axis,
-                    fused_depth=plan.fused_depth,
-                    num_shards=plan.num_shards,
-                    traffic_bytes=plan.traffic_bytes,
-                    modeled_ms=plan.modeled_ms,
-                )
+                sp.set(**_plan_span_args(plan, self.last_plan_tuned))
             return plan
         return self._plan_resolve(request, key)
 
@@ -346,18 +340,29 @@ class Planner:
         building and keying a request costs a fraction of a millisecond
         of host time before the first launch.
 
-        The memo is bypassed while recording (every call is then a
-        ``plan`` span, as the JAX package's frontends make it) and on a
-        planner with a tuned DB, whose answer changes when a winner is
-        recorded: it then plans each call."""
-        if self.tuned_db is not None or obs.enabled():
+        A traced call takes the same path as an untraced one: every call
+        still shows a ``plan`` span (as the JAX package's frontends make
+        it), a memo hit's carrying the memoized plan's arguments and
+        ``memo="hit"``.  Each lookup bumps ``plan_memo_hit`` or
+        ``plan_memo_miss`` (``repro_torch.obs.totals()``); a miss makes the
+        open port call cold.  A planner with a tuned DB, whose answer
+        changes when a winner is recorded, plans each call."""
+        if self.tuned_db is not None:
             return self.plan(**kw)
         plan = self._by_call.get(signature)
-        if plan is None:
-            plan = self.plan(**kw)
-            if len(self._by_call) >= 1024:
-                self._by_call.clear()
-            self._by_call[signature] = plan
+        if plan is not None:
+            obs.count(_MEMO_HIT)
+            if obs.enabled():
+                with obs.span("plan", key=plan.request.cache_key(),
+                              memo="hit", **_plan_span_args(plan, False)):
+                    pass
+            return plan
+        obs.count(_MEMO_MISS)
+        obs.mark_cold()
+        plan = self.plan(**kw)
+        if len(self._by_call) >= 1024:
+            self._by_call.clear()
+        self._by_call[signature] = plan
         return plan
 
     def _analytic(
@@ -805,6 +810,19 @@ class Planner:
 
 
 _DEFAULT: Planner | None = None
+
+
+def _plan_span_args(plan: StencilPlan, tuned: bool) -> dict:
+    """A ``plan`` span's outcome arguments."""
+    return dict(
+        tuned=tuned,
+        tile=list(plan.tile),
+        sweep_axis=plan.sweep_axis,
+        fused_depth=plan.fused_depth,
+        num_shards=plan.num_shards,
+        traffic_bytes=plan.traffic_bytes,
+        modeled_ms=plan.modeled_ms,
+    )
 
 
 def default_planner() -> Planner:

@@ -475,9 +475,16 @@ class PlanRequest:
         return d
 
     def cache_key(self) -> str:
-        """Stable content hash of the request (+ planner version)."""
-        blob = json.dumps(self.canonical(), sort_keys=True, separators=(",", ":"))
-        return hashlib.sha256(blob.encode()).hexdigest()
+        """Stable content hash of the request (+ planner version), worked
+        out once a request (the request is frozen): a traced call names
+        its plan's key in every span."""
+        key = self.__dict__.get("_cache_key")
+        if key is None:
+            blob = json.dumps(self.canonical(), sort_keys=True,
+                              separators=(",", ":"))
+            key = hashlib.sha256(blob.encode()).hexdigest()
+            self.__dict__["_cache_key"] = key
+        return key
 
     @classmethod
     def from_dict(cls, d: dict) -> "PlanRequest":

@@ -341,6 +341,7 @@ class TunedPlanDB:
             self.stats["hits"] += 1
             self.stats["mem_hits"] += 1
             return rec
+        obs.mark_cold()  # the open port call reads the disk or races
         if self.dir is not None:
             path = self._path(key, fingerprint)
             raw = None

@@ -33,7 +33,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch import ir  # noqa: E402
+from repro_torch import ir, obs  # noqa: E402
 from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
 from repro_torch.core.tiling import (  # noqa: E402
     apply_smem_bytes,
@@ -44,6 +44,13 @@ from repro_torch.kernels import conv1d, sweep  # noqa: E402
 from repro_torch.kernels import stencil as st  # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+
+def _launches(*kernels):
+    """Kernel launches on the card so far, summed over ``kernels``
+    (``repro_torch.obs.totals()``'s ``launches.<kernel>``)."""
+    t = obs.totals()
+    return sum(t[f"launches.{k}"] for k in kernels)
 
 CASES = [
     # shape, tile, sweep_axis
@@ -99,9 +106,9 @@ def test_sweep_apply_equals_plain(dev, case, pipelined, dtype):
              _spec(star_stencil(d, 1), np.linspace(0.3, -0.2, 2 * d + 1)))
     _, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, n=2,
                                            dtype=dtype, device=dev)
-    before = sweep.sweep_apply.launches
+    before = _launches("sweep_apply")
     k = sweep.sweep_apply(ins, o, ws, lo_w, hi_w, tile, sw, pipelined)
-    assert sweep.sweep_apply.launches == before + 1
+    assert _launches("sweep_apply") == before + 1
     p = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
     torch.cuda.synchronize()
     assert _same_bits(k, p)
@@ -262,10 +269,10 @@ def test_sweep_chain_equals_plain(dev, case, pipelined, window_kind, dtype):
         stages_w = (_spec(offs, np.linspace(-0.5, 0.5, len(offs))),) * 3
     _, ins, _, _, stages, lo_w, hi_w = _launch(
         shape, tile, stages_w[:1], stages_w, dtype=dtype, device=dev)
-    before = sweep.sweep_chain.launches
+    before = _launches("sweep_chain")
     k = sweep.sweep_chain(ins[0], stages, lo_w, hi_w, tile, sw, pipelined,
                           window_kind, shape)
-    assert sweep.sweep_chain.launches == before + 1
+    assert _launches("sweep_chain") == before + 1
     p = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, sw,
                                 pipelined, window_kind, shape)
     torch.cuda.synchronize()
@@ -348,10 +355,10 @@ def test_sweep_chain_conditions_equal_plain(dev, case, config, window_kind):
     _, ins, _, _, stages, lo_w, hi_w = _launch(
         shape, tile, stages_w[:1], stages_w, device=dev, seed=case, **kw)
     iq = kw.get("in_quant")
-    before = sweep.sweep_chain.launches
+    before = _launches("sweep_chain")
     k = sweep.sweep_chain(ins[0], stages, lo_w, hi_w, tile, sw, True,
                           window_kind, shape, in_quant=iq)
-    assert sweep.sweep_chain.launches == before + 1
+    assert _launches("sweep_chain") == before + 1
     p = sweep.sweep_chain_plain(ins[0], stages, lo_w, hi_w, tile, sw, True,
                                 window_kind, shape, in_quant=iq)
     torch.cuda.synchronize()
@@ -578,9 +585,9 @@ def test_single_stage_boundary_launch_equals_plain(dev, case, kind):
     prog = ir.chain_program([(np.asarray(spec[0]), spec[1])], len(shape),
                             boundary=kind, value=value)
     x = np.random.default_rng(case).standard_normal(shape).astype(np.float32)
-    before = sweep.sweep_chain.launches
+    before = _launches("sweep_chain")
     gpu = ir.run_program(prog, x, tile=tile, sweep_axis=sw)
-    assert sweep.sweep_chain.launches == before + 1
+    assert _launches("sweep_chain") == before + 1
     cpu = ir.run_program(prog, x, tile=tile, sweep_axis=sw, device="cpu")
     assert _same_bits(gpu.cpu(), cpu)
 
@@ -718,9 +725,9 @@ def test_corpus_programs_on_the_card_equal_the_cpu(dev, seed, window_kind):
     x = np.random.default_rng(seed).standard_normal(spec["shape"]).astype(
         np.float32)
     kw = dict(tile=corpus_tile(spec), window_kind=window_kind)
-    before = sweep.sweep_chain.launches + sweep.sweep_apply.launches
+    before = _launches("sweep_chain", "sweep_apply")
     gpu = ir.run_program(prog, x, **kw)
-    assert sweep.sweep_chain.launches + sweep.sweep_apply.launches \
+    assert _launches("sweep_chain", "sweep_apply") \
         == before + 1
     cpu = ir.run_program(prog, x, device="cpu", **kw)
     assert _same_bits(gpu.cpu(), cpu)
@@ -753,9 +760,9 @@ def _conv_inputs(b, s, c, width, with_state, dtype, dev, seed=0):
 def test_conv1d_equals_plain(dev, case, dtype, width, with_state):
     b, s, c, tile_s = CONV_CASES[case]
     x, w, bias, state = _conv_inputs(b, s, c, width, with_state, dtype, dev)
-    before = conv1d.causal_conv1d.launches
+    before = _launches("conv1d")
     k = conv1d.causal_conv1d_launch(x, w, bias, tile_s, state)
-    assert conv1d.causal_conv1d.launches == before + 1
+    assert _launches("conv1d") == before + 1
     p = conv1d.causal_conv1d_plain(x, w, bias, state)
     torch.cuda.synchronize()
     assert _same_bits(k, p), float((k.float() - p.float()).abs().max())
@@ -887,10 +894,10 @@ def test_mamba2_smoke_model_on_the_card_equals_the_cpu(dev, dtype, arch):
             params = SSMModel(cfg, device=dev)
             params.load_state_dict(params_cpu.state_dict())
         cache = model.init_cache(2, 23)
-        before = conv1d.causal_conv1d.launches
+        before = _launches("conv1d")
         lg, cache = model.prefill(params, {"tokens": toks[:, :21]}, cache)
         if where == "cuda":
-            assert conv1d.causal_conv1d.launches == before + cfg.n_layers
+            assert _launches("conv1d") == before + cfg.n_layers
         out = [lg]
         for i in (21, 22):
             lg, cache = model.decode_step(params, cache, toks[:, i:i + 1], i)
@@ -927,7 +934,7 @@ def test_planned_launch_equals_the_plain_version(case, dev, monkeypatch):
     rng = np.random.default_rng(12)
     x = rng.standard_normal(shape).astype(np.float32)
     o13, w13 = ref.star_weights_2nd_order(3, 2)
-    before = sweep.sweep_apply.launches + sweep.sweep_chain.launches
+    before = _launches("sweep_apply", "sweep_chain")
     if kind == "rhs":
         y = rng.standard_normal(shape).astype(np.float32)
         args = ([x, y], [o13, o13[::-1]], [w13, w13[::-1]])
@@ -938,7 +945,7 @@ def test_planned_launch_equals_the_plain_version(case, dev, monkeypatch):
         got = ir.run_program(prog, x * 0.3)
     else:
         got = st.stencil_iterate(x, o13, w13, T)
-    launched = (sweep.sweep_apply.launches + sweep.sweep_chain.launches
+    launched = (_launches("sweep_apply", "sweep_chain")
                 - before)
     ((key, plan),) = rec.cache._mem.items()
     assert plan.request.hardware == desc.key()
@@ -1005,9 +1012,9 @@ def test_tuned_call_equals_the_plain_version(case, dev, tmp_path,
     during = []
 
     def watched(*a, **kw):
-        before = sweep.sweep_apply.launches + sweep.sweep_chain.launches
+        before = _launches("sweep_apply", "sweep_chain")
         p = plan_fn(*a, **kw)
-        during.append(sweep.sweep_apply.launches + sweep.sweep_chain.launches
+        during.append(_launches("sweep_apply", "sweep_chain")
                       - before)
         return p
 

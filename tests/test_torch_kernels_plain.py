@@ -34,6 +34,7 @@ from repro_torch.kernels import stencil as st  # noqa: E402
 from test_torch_kernels_cuda import (  # noqa: E402
     BOX27,
     CHAIN_CONFIGS,
+    _launches,
     _symmetric_chain,
 )
 
@@ -723,14 +724,14 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_plain_path_counts_no_launch():
-    before = (sweep.sweep_apply.launches, sweep.sweep_chain.launches)
+    before = (_launches("sweep_apply"), _launches("sweep_chain"))
     x = np.random.default_rng(0).standard_normal((12, 13, 14)).astype(
         np.float32)
     st.stencil_pallas(x, O13, W13, tile=(4, 8, 8), sweep_axis=0,
                       device="cpu")
     st.stencil_iterate(x, O13, W13, 2, tile=(4, 8, 8), sweep_axis=0,
                        device="cpu")
-    assert (sweep.sweep_apply.launches, sweep.sweep_chain.launches) == before
+    assert (_launches("sweep_apply"), _launches("sweep_chain")) == before
 
 
 @pytest.mark.parametrize("call", [

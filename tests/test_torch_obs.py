@@ -286,10 +286,10 @@ def test_plan_span_and_cache_counters():
 
 def test_planned_call_traces_a_plan_span_every_call(memory_planner,
                                                     tmp_path):
-    """The frontend's memo of calls is bypassed while recording: a traced
-    planned call shows its ``plan`` span and cache lookup, as the JAX
-    package's frontend does, and still launches the memoized plan's
-    decision."""
+    """A traced planned call takes the frontend's memo of calls, as an
+    untraced one does, and still shows its ``plan`` span, as the JAX
+    package's frontend does: a memo hit's span carries the memoized
+    plan and ``memo="hit"``, and the call launches its decision."""
     (x,) = _data((12, 13, 14))
     first = tst.stencil_pallas(x, O7, W7, device="cpu")
     path = str(tmp_path / "t.json")
@@ -297,7 +297,7 @@ def test_planned_call_traces_a_plan_span_every_call(memory_planner,
     assert torch.equal(first, again)
     s = summarize(_load(path))
     assert s["n_plan_spans"] == 1
-    assert s["counters"]["plan_cache_hit"] == 1
+    assert s["counters"]["plan_memo_hit"] == 1
     assert reconcile(s) == []
 
 

@@ -24,7 +24,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro import ir as jir  # noqa: E402
 from repro.kernels.stencil import multi_stencil_pallas  # noqa: E402
 from repro_torch import ir as tir  # noqa: E402
-from repro_torch.kernels import sweep  # noqa: E402
+from repro_torch import obs  # noqa: E402
 from repro_torch.kernels.ref import star_weights_2nd_order  # noqa: E402
 
 # The operators of tests/test_boundary_menu.py: a box(2, 1) whose corner
@@ -70,10 +70,10 @@ def _equal(want, got):
 def test_single_application_equals_jax(offs, w, kind, value):
     """T = 1, corner-reading box / asymmetric star / one-sided trail taps:
     a one-stage chain launch with correction taps (or the wrap fill)."""
-    before = sweep.sweep_apply.launches
+    before = obs.totals()["launches.sweep_apply"]
     _equal(*_both(_u((24, 32)), _chain(offs, w, 1, kind, value, 2),
                   (8, 16)))
-    assert sweep.sweep_apply.launches == before
+    assert obs.totals()["launches.sweep_apply"] == before
 
 
 @pytest.mark.parametrize("kind,value", [("periodic", 0.0),
