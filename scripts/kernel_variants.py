@@ -12,17 +12,24 @@ flags into ``build/variants/`` (one nvcc each, all at once), and swapped
 in for the wrapper's library.  On the shapes of ``chip_smoke.py``'s
 phases (the 512³ f32 and 256³ bf16 p = 2 applications, the sweep-axis-1
 p = 2 application, and Mamba2-2.7B's prefill conv, 4 × 2048 × 5376 bf16)
-each variant is held bit for bit against the plain version, then its
-kernel's device time is read with ``torch.profiler`` (median of
-``--reps`` launches), the variants in turns, ``--rounds`` times.  Prints
-the card, each variant's ptxas register and spill lines, and one JSON
-line per (variant, phase, round).
+and the benchmark's planned applications (the 13-point star and the
+27-point box at 512³ on tile (8, 32, 32), the star at 128³ on tile
+(128, 2, 32)), each variant is held bit for bit against the plain
+version, then its kernel's device time is read with ``torch.profiler``
+(median of ``--reps`` launches), the variants in turns, ``--rounds``
+times.  Each application runs twice: on the padded launch buffer
+(``.padded``, the grid copied into a zero halo beforehand) and on the
+grid as it is (``.direct``, the kernel zero-filling its window outside
+the grid), so a slower kernel shows apart from the buffer's removal.
+Prints the card, each variant's ptxas register and spill lines, and one
+JSON line per (variant, phase, round).
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import itertools
 import json
 import statistics
 import subprocess
@@ -40,8 +47,10 @@ VARIANTS = {
         "min_blocks_1": {"__launch_bounds__(512, 2)":
                          "__launch_bounds__(512, 1)"},
         # every window row through the piecewise row copy, none through
-        # the flat 16-byte path of an aligned launch
-        "no_copy16": {"P.copy16 = copy16;": "P.copy16 = 0;"},
+        # the flat path of an aligned launch
+        "no_copy16": {"P.copy16 = rows_copy16(geom, ins, &P.head, &P.tail);":
+                      "rows_copy16(geom, ins, &P.head, &P.tail);\n"
+                      "  P.copy16 = 0;"},
     },
     "conv1d": {
         "as_built": {},
@@ -166,27 +175,41 @@ def main() -> None:
     w7 = [-1.5] + [0.25] * 6
     offs_r = star_stencil(3, 1)[::-1].copy()
     w_r = [0.25] * 6 + [-1.5]
+    box = np.array(list(itertools.product((-1, 0, 1), repeat=3)))
+    w_box = np.linspace(-0.3, 0.45, 27)
     phases = {}
-    gen.manual_seed(0)
-    u = [torch.randn((512,) * 3, generator=gen, device=dev)]
-    ins, o, w, _, lo, hi = st._launch_inputs(u, (spec(offs13, w13),),
-                                             (8, 16, 32))
-    phases["apply_f32_512"] = ("sweep_apply",
-                               (ins, o, w, lo, hi, (8, 16, 32), 0, True))
-    gen.manual_seed(1)
-    u = [torch.randn((256,) * 3, generator=gen, device=dev).to(
-        torch.bfloat16) for _ in range(2)]
-    ins, o, w, _, lo, hi = st._launch_inputs(
-        u, (spec(offs13, w13), spec(offs7, w7)), (8, 16, 32))
-    phases["apply_bf16_p2_256"] = ("sweep_apply",
-                                   (ins, o, w, lo, hi, (8, 16, 32), 0, True))
+
+    def applications(name, seed, shape, specs, tile, sweep_axis,
+                     dtype=torch.float32):
+        """Phase ``name`` on the padded launch buffers and on the grids."""
+        gen.manual_seed(seed)
+        u = [torch.randn(shape, generator=gen, device=dev).to(dtype)
+             for _ in specs]
+        ins, o, w, _, lo, hi = st._launch_inputs(u, specs, tile)
+        phases[f"{name}.padded"] = (
+            "sweep_apply", (ins, o, w, lo, hi, tile, sweep_axis, True), {})
+        phases[f"{name}.direct"] = (
+            "sweep_apply", (u, o, w, lo, hi, tile, sweep_axis, True),
+            {"padded": False})
+
+    applications("apply_f32_512", 0, (512,) * 3, (spec(offs13, w13),),
+                 (8, 16, 32), 0)
+    applications("planned_star_f32_512", 2, (512,) * 3,
+                 (spec(offs13, w13),), (8, 32, 32), 0)
+    applications("planned_box_f32_512", 3, (512,) * 3, (spec(box, w_box),),
+                 (8, 32, 32), 0)
+    applications("planned_star_f32_128", 4, (128,) * 3,
+                 (spec(offs13, w13),), (128, 2, 32), 0)
+    applications("apply_bf16_p2_256", 1, (256,) * 3,
+                 (spec(offs13, w13), spec(offs7, w7)), (8, 16, 32), 0,
+                 torch.bfloat16)
     gen.manual_seed(7)
     u = [torch.randn((512,) * 3, generator=gen, device=dev)
          for _ in range(2)]
     ins, o, w, _, lo, hi = st._launch_inputs(
         u, (spec(offs13, w13), spec(offs_r, w_r)), (16, 8, 32))
     phases["apply_f32_p2_512_sweep1"] = (
-        "sweep_apply", (ins, o, w, lo, hi, (16, 8, 32), 1, True))
+        "sweep_apply", (ins, o, w, lo, hi, (16, 8, 32), 1, True), {})
     del u
     gen.manual_seed(6)
     xbc = torch.randn((4, 2048, 5376), generator=gen, device=dev).to(
@@ -196,19 +219,24 @@ def main() -> None:
     cb = (torch.randn((5376,), generator=gen, device=dev) * 0.1).to(
         torch.bfloat16)
     state = torch.zeros((4, 3, 5376), dtype=torch.bfloat16, device=dev)
-    phases["conv_prefill"] = ("conv1d", (xbc, cw, cb, 256, state))
+    phases["conv_prefill"] = ("conv1d", (xbc, cw, cb, 256, state), {})
 
     plain = {}
-    for ph, (name, a) in phases.items():
-        plain[ph] = (sweep.sweep_apply_plain(*a) if name == "sweep_apply"
-                     else conv1d.causal_conv1d_plain(a[0], a[1], a[2], a[4]))
+    for ph, (name, a, kw) in phases.items():
+        if ph.endswith(".direct"):  # the padded phase's, trimmed
+            grid = tuple(slice(0, n) for n in a[0][0].shape)
+            plain[ph] = plain[ph.replace(".direct", ".padded")][grid]
+        elif name == "sweep_apply":
+            plain[ph] = sweep.sweep_apply_plain(*a)
+        else:
+            plain[ph] = conv1d.causal_conv1d_plain(a[0], a[1], a[2], a[4])
     for rnd in range(args.rounds):
-        for ph, (name, a) in phases.items():
+        for ph, (name, a, kw) in phases.items():
             tags = list(VARIANTS[name])
             for tag in (tags if rnd % 2 == 0 else tags[::-1]):
                 use(name, tag)
                 if name == "sweep_apply":
-                    fn = (lambda a=a: sweep.sweep_apply(*a))
+                    fn = (lambda a=a, kw=kw: sweep.sweep_apply(*a, **kw))
                     kern = "sweep_apply_kernel"
                 else:
                     fn = (lambda a=a: conv1d.causal_conv1d_launch(*a))

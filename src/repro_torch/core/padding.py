@@ -23,16 +23,18 @@ return the reference's values.  The grains, and where each comes from:
 
 * the launch buffer: ``kernels/stencil.py::_launch_inputs`` rounds every
   dim of a grid up to the launch tile and adds the window halo on both
-  sides (``lo + round_up(n, t) + hi``).  The kernels read that buffer,
-  never the caller's array, so its slack is what a launch wastes;
+  sides (``lo + round_up(n, t) + hi``).  Chain, periodic, quantized and
+  sharded launches read that buffer, so its slack is what they waste; a
+  plain application reads the caller's array and builds none;
 * the 128-byte line (``core/tiling.py::LINE_BYTES``, 32 f32 or 64 bf16
   elements): a warp's row read moves whole L2 lines, and the planner
   takes minor tile extents in whole lines (``minor_unit``), so a minor
   extent that is not a whole number of lines pays the rest of the line;
 * the 16-byte ``cp.async`` block of ``csrc/sweep_common.cuh``: the apply
-  kernel copies window rows as whole blocks only where the buffer's
-  pitches and the window's rows (tile plus halo) are whole blocks.  A
-  minor extent rounded to a line does not make them so: ``lo + hi``
+  kernel copies window rows by its flat index only where the input's
+  pitches are whole blocks and each window row is whole blocks with at
+  most a 4- or 8-byte piece at each end.  A minor extent rounded to a
+  line does not make the pitches so, and on a padded buffer ``lo + hi``
   decides (4 f32 elements are a block, 4 bf16 elements are not).
 """
 
@@ -170,9 +172,11 @@ def tpu_layout_waste(
     buffer elements``; 0.0 means nothing is wasted.
 
     The buffer is the one ``kernels/stencil.py::_launch_inputs`` builds:
-    per dim, ``lo + round_up(n, t) + hi``.  ``tile`` gives ``t`` for the
-    trailing ``len(tile)`` dims (leading dims are not rounded; a shape of
-    fewer dims gets leading 1s).  ``None`` is one 128-byte line on the
+    per dim, ``lo + round_up(n, t) + hi``.  Only chain, periodic,
+    quantized and sharded launches build it now; a plain application
+    reads the caller's grid and wastes nothing here.  ``tile`` gives
+    ``t`` for the trailing ``len(tile)`` dims (leading dims are not
+    rounded; a shape of fewer dims gets leading 1s).  ``None`` is one 128-byte line on the
     minor dim (``minor_unit(dtype_bytes)`` elements) and 1 elsewhere: the
     planner's minor grain.  ``halo`` is the window radius on every dim or
     one ``(lo, hi)`` pair per dim of ``shape``.  With the reference's

@@ -244,6 +244,7 @@ def apply_smem_bytes(
     strides: Sequence[int],
     n_inputs: int = 1,
     pipelined: bool = False,
+    row_pad: int = 0,
 ) -> int:
     """Dynamic shared memory of one ``csrc/sweep_apply.cu`` CTA, in bytes.
 
@@ -252,11 +253,14 @@ def apply_smem_bytes(
     per RHS: ``t_s + h_s`` sweep rows (plus ``t_s`` landing rows when
     ``pipelined``, the effective flag) of the window's cross plane.  In a
     plane, window rows along c1 lie ``pitch`` elements apart: where c1 is
-    the minor axis (``strides`` of the padded input), the least extent >=
-    the window's c1 extent whose bytes equal the input's c0 stride modulo
-    16, so that each shared row starts at its source row's alignment;
-    else the c1 extent.  Each plane is rounded up to 16 bytes, and each
-    ring has 16 bytes more for its start's alignment shift.  Raises
+    the minor axis (``strides`` of the input), the least extent >= the
+    window's c1 extent plus ``row_pad`` whose bytes equal the input's c0
+    stride modulo 16, so that each shared row starts at its source row's
+    alignment; else the c1 extent plus ``row_pad`` (room for a direct
+    read to copy every 16-byte block its window row touches,
+    ``kernels/sweep.py::_row_pad``).  Each plane is rounded up to 16
+    bytes, and each ring has 16 bytes more for its start's alignment
+    shift.  Raises
     ``ValueError`` above :data:`SMEM_BLOCK_LIMIT`, as
     :func:`sweep_smem_bytes` does."""
     d = len(tile)
@@ -266,7 +270,7 @@ def apply_smem_bytes(
     stride3 = (0,) * (3 - d) + tuple(int(v) for v in strides)
     win = [t + int(lo) + int(hi) for t, (lo, hi) in zip(tile3, halo3)]
     c0, c1 = [i for i in range(3) if i != s]
-    pitch = win[c1]
+    pitch = win[c1] + int(row_pad)
     if stride3[c1] == 1:
         while (pitch - stride3[c0]) * int(dtype_bytes) % 16:
             pitch += 1

@@ -40,6 +40,15 @@
 //   them runs without per-tap dispatch.  Any other operator runs a
 //   table-driven loop whose taps (sweep and plane offsets packed in one
 //   int, and the weight: one 8-byte parameter read) are read a tap ahead.
+// * The kernel reads the caller's grid as it is: no zero-haloed copy of
+//   it is made before the launch.  A window is laid over the grid at the
+//   tile's base less the halo lo, and every part of it outside the grid
+//   (the halo at the grid's faces, the round-up of a last tile) is
+//   zero-filled in shared memory as it arrives, so a tap that reads there
+//   adds w * 0 as it would from a stored zero.  Outputs past the grid are
+//   neither computed nor stored, so the output has the grid's own shape.
+//   A padded launch buffer (the sharded path's) is read the same way, as
+//   a grid that is the whole buffer.
 // * Window rows arrive as cp.async copies of 16 bytes where they can.
 //   Each shared row starts at its source row's address modulo 16: the row
 //   pitch is padded to the source's c0 pitch modulo 16 bytes and each RHS
@@ -49,10 +58,18 @@
 //   4-byte cp.async pieces at the ends; only a 2-byte end piece is copied
 //   by an ordinary load and store; a row takes a group of 4 to 32 lanes,
 //   as many as its pieces need.  Where the whole launch is aligned, each
-//   thread copies one 16-byte block of a flat index (copy16).  When the
-//   sweep axis is the minor one, elements are copied one by one, with the
-//   sweep rows fastest so the reads coalesce (load_rows_pitched,
-//   sweep_common.cuh).
+//   thread copies one 16-byte block of a flat index (copy16).  On the
+//   caller's grid a window row starts 1 or 2 f32 before a 16-byte
+//   boundary (the halo lo), so it is an end piece, whole blocks and an end
+//   piece: where the wrapper widens the shared rows to make room
+//   (row_pad, kernels/sweep.py::_row_pad: only where two CTAs still fit an
+//   SM), every block the row touches is copied, the pieces with the
+//   neighbours that share their blocks (never read); else the pieces
+//   follow as cp.async copies of their own, which cost more (each is a
+//   line of its own).  A block outside the grid is a cp.async with a
+//   src-size of 0 from the grid's base.  When the sweep axis is the minor
+//   one, elements are copied one by one, with the sweep rows fastest so
+//   the reads coalesce (load_rows_pitched, sweep_common.cuh).
 //
 // Bit-exactness: each output's taps are applied RHS by RHS in
 // zip(offsets, weights) order as separate f32 multiplies and adds (built
@@ -76,11 +93,14 @@ constexpr int kMaxTaps = 192;
 struct ApplyParams {
   const void* in[kMaxRhs];
   void* out;
-  long long in_stride[3];   // element strides of the padded inputs
-  long long out_stride[3];  // element strides of the padded output
+  long long in_stride[3];   // element strides of the inputs
+  long long out_stride[3];  // element strides of the output
   int tile[3];
   int lo[3];   // window halo below the tile, per axis
   int win[3];  // window extent tile + lo + hi, per axis
+  int n[3];      // the inputs' extents: what lies outside reads as zero
+  int org[3];    // window coordinate of the inputs' element 0 (lo or 0)
+  int out_n[3];  // the output's extents: rows past them are not stored
   int nswp;           // sweep steps per column
   int ntiles_c1;      // tile columns along c1 (decodes blockIdx.x)
   int rows;           // ring depth in sweep rows
@@ -90,7 +110,9 @@ struct ApplyParams {
   int pitch;       // shared elements between window rows along c0
   int plane;       // shared elements between ring slots (16-byte multiple)
   int ring_bytes;  // bytes between consecutive RHS rings (16-aligned)
-  int copy16;      // every window row copies as whole 16-byte blocks
+  int copy16;      // every window row copies by the flat index (units)
+  int head, tail;  // bytes of a row's piece before / after its blocks
+  int span;        // copy16 rows copy every block they touch (row_pad)
   int group;       // lanes copying one window row otherwise (4 to 32)
   int tap_begin[kMaxRhs + 1];
   int shape[kMaxRhs];  // kShapeTable or the compiled shape of RHS a's taps
@@ -194,17 +216,18 @@ __device__ __forceinline__ void table_add(const ApplyParams& P, int q0,
   }
 }
 
-// RHS a's ring in shared memory, offset by its first source element's
-// address modulo 16 (zero when every copy is whole 16-byte blocks).
+// RHS a's ring in shared memory, offset by the address modulo 16 of its
+// window's first element (`first` elements from the input's element 0;
+// negative where the window starts before the grid).
 template <typename T>
 __device__ __forceinline__ T* ring_of(const ApplyParams& P,
                                       unsigned char* smem, int a,
                                       long long first) {
   const unsigned long long addr =
-      reinterpret_cast<unsigned long long>(static_cast<const T*>(P.in[a]) +
-                                           first);
+      reinterpret_cast<unsigned long long>(P.in[a]) +
+      static_cast<unsigned long long>(first) * sizeof(T);
   return reinterpret_cast<T*>(smem + a * P.ring_bytes +
-                              (P.copy16 ? 0 : static_cast<int>(addr & 15)));
+                              static_cast<int>(addr & 15));
 }
 
 template <typename T, int SW>
@@ -222,7 +245,9 @@ __global__ void __launch_bounds__(512, 2)
   const int base_c0 = tc0 * P.tile[kC0];
   const int base_c1 = tc1 * t1;
   const long long first =
-      base_c0 * P.in_stride[kC0] + base_c1 * P.in_stride[kC1];
+      static_cast<long long>(-P.org[kS]) * P.in_stride[kS] +
+      static_cast<long long>(base_c0 - P.org[kC0]) * P.in_stride[kC0] +
+      static_cast<long long>(base_c1 - P.org[kC1]) * P.in_stride[kC1];
   const int n_items = (t_s + kRows - 1) / kRows * P.tile[kC0] * t1;
   const FastDiv by_plane = make_div(P.tile[kC0] * t1), by_t1 = make_div(t1);
   T* out = static_cast<T*>(P.out);
@@ -244,6 +269,8 @@ __global__ void __launch_bounds__(512, 2)
       int rem, x1;
       const int c = divide(u, by_plane, rem);
       const int x0 = divide(rem, by_t1, x1);
+      if (base_c0 + x0 >= P.out_n[kC0] || base_c1 + x1 >= P.out_n[kC1])
+        continue;  // past the grid: nothing to compute or store
       const int rows = P.rows;
       int m = m0 + c * kRows;
       while (m >= rows) m -= rows;
@@ -280,9 +307,10 @@ __global__ void __launch_bounds__(512, 2)
       T* o = out + ((g_step + r0) * P.out_stride[kS] +
                     (base_c0 + x0) * P.out_stride[kC0] +
                     (base_c1 + x1) * P.out_stride[kC1]);
+      const int last = min(t_s, P.out_n[kS] - g_step);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
-        if (r0 + i < t_s) o[i * P.out_stride[kS]] = from_f32<T>(acc[i]);
+        if (r0 + i < last) o[i * P.out_stride[kS]] = from_f32<T>(acc[i]);
     }
     m0 += t_s;
     if (m0 >= P.rows) m0 -= P.rows;
@@ -306,17 +334,27 @@ KernelFn pick(int dtype, int sweep, int smem_bytes, cudaError_t* err) {
   return fn;
 }
 
-// Whether every window row of a launch copies as whole 16-byte blocks
-// (copy16): every row starts aligned in global and shared memory and is a
-// whole number of blocks.  geom and ins as sweep_apply_launch takes them.
-bool rows_copy16(const long long* geom, const void* const* ins) {
+// Whether every window row of a launch copies by the flat index (copy16):
+// every input row starts at a 16-byte boundary, so every tile's window
+// row starts at one alignment, a `head`-byte piece before its first
+// 16-byte boundary, and ends with a `tail`-byte piece after its last,
+// each of 0, 4 or 8 bytes (one cp.async).  geom and ins as
+// sweep_apply_launch takes them.
+bool rows_copy16(const long long* geom, const void* const* ins, int* head,
+                 int* tail) {
   const int sweep = static_cast<int>(geom[15]);
   const int c0 = sweep == 0 ? 1 : 0, c1 = sweep == 2 ? 1 : 2;
   const long long esize = geom[22] == 1 ? 2 : 4;
   const auto aligned = [](long long bytes) { return bytes % 16 == 0; };
+  const auto piece = [](long long bytes) {
+    return bytes == 0 || bytes == 4 || bytes == 8;
+  };
+  *head = static_cast<int>(geom[26 + c1] * esize % 16);
+  *tail = static_cast<int>(((geom[12 + c1] * esize - *head) % 16 + 16) % 16);
   bool copy16 = geom[c1] == 1 && aligned(geom[sweep] * esize) &&
                 aligned(geom[c0] * esize) && aligned(geom[6 + c1] * esize) &&
-                aligned(geom[12 + c1] * esize);
+                piece(*head) && piece(*tail) &&
+                geom[12 + c1] * esize >= *head + *tail;
   for (long long a = 0; a < geom[20]; ++a)
     copy16 = copy16 && aligned(reinterpret_cast<long long>(ins[a]));
   return copy16;
@@ -328,15 +366,21 @@ bool rows_copy16(const long long* geom, const void* const* ins) {
 //   [0:3] in_stride  [3:6] out_stride  [6:9] tile  [9:12] lo  [12:15] win
 //   [15] sweep  [16] nswp  [17] ntiles_c0  [18] ntiles_c1  [19] pipelined
 //   [20] p  [21] threads  [22] dtype (0 = float32, 1 = bfloat16)
+//   [23:26] the inputs' extents  [26:29] the window coordinate of their
+//   element 0 (lo where the inputs are the caller's grid, 0 for padded
+//   buffers)  [29:32] the output's extents  [32] row_pad: elements a
+//   window row's shared row gains, so that a flat copy can take every
+//   16-byte block the row touches (the pieces at its ends with their
+//   neighbours) instead of copying the pieces apart
 // tap_begin: p + 1 prefix counts; tap_off: 3 ints per tap (axis order);
 // tap_w: one float per tap.  Shared memory, per RHS (its ring): rows x
 // plane elements, plane = w0 x pitch rounded up to 16 bytes, pitch the
-// least extent >= w1 whose bytes equal the input's c0 stride modulo 16
-// (w1 where c1 is not the minor axis), plus 16 bytes for the ring's
-// alignment shift (kernels/sweep.py::apply_smem_bytes).  smem_bytes must
-// equal that: -1 means it does not (or exceeds 227 KB), -2 that the taps
-// or RHS exceed the fixed tables (or an offset does not pack), -3 that
-// threads is not kThreads.
+// least extent >= w1 + row_pad whose bytes equal the input's c0 stride
+// modulo 16 (w1 + row_pad where c1 is not the minor axis), plus 16 bytes
+// for the ring's alignment shift (core/tiling.py::apply_smem_bytes).
+// smem_bytes must equal that: -1 means it does not (or exceeds 227 KB),
+// -2 that the taps or RHS exceed the fixed tables (or an offset does not
+// pack), -3 that threads is not kThreads.
 // Otherwise the return is the CUDA error of the launch.
 extern "C" int sweep_apply_launch(const long long* geom,
                                   const void* const* ins, void* out,
@@ -350,6 +394,9 @@ extern "C" int sweep_apply_launch(const long long* geom,
     P.tile[i] = static_cast<int>(geom[6 + i]);
     P.lo[i] = static_cast<int>(geom[9 + i]);
     P.win[i] = static_cast<int>(geom[12 + i]);
+    P.n[i] = static_cast<int>(geom[23 + i]);
+    P.org[i] = static_cast<int>(geom[26 + i]);
+    P.out_n[i] = static_cast<int>(geom[29 + i]);
   }
   // The sweep axis and the two cross axes (c0 < c1).
   const int sweep = static_cast<int>(geom[15]);
@@ -368,7 +415,8 @@ extern "C" int sweep_apply_launch(const long long* geom,
   P.rows = P.win[sweep] + (P.pipelined ? t_s : 0);
   const int esize = dtype == 1 ? 2 : 4;
   const int w0 = P.win[c0], w1 = P.win[c1];
-  P.pitch = w1;
+  const int row_pad = static_cast<int>(geom[32]);
+  P.pitch = w1 + row_pad;
   if (P.in_stride[c1] == 1)
     while ((P.pitch - P.in_stride[c0]) * esize % 16 != 0) ++P.pitch;
   const int plane_bytes = align16(static_cast<long long>(w0) * P.pitch * esize);
@@ -377,7 +425,9 @@ extern "C" int sweep_apply_launch(const long long* geom,
   const long long need = static_cast<long long>(P.ring_bytes) * P.p;
   if (need != smem_bytes || need > kSmemLimit) return -1;
   for (int a = 0; a < P.p; ++a) P.in[a] = ins[a];
-  P.copy16 = rows_copy16(geom, ins);
+  P.copy16 = rows_copy16(geom, ins, &P.head, &P.tail);
+  P.span = P.copy16 && row_pad * esize == (16 - P.head) % 16 +
+                                           (16 - P.tail) % 16 && row_pad > 0;
   // Lanes a row: the power of two (4 to 32) at or above the units of a
   // row with one piece at each end (more pieces take a second turn).
   P.group = 4;
@@ -423,10 +473,12 @@ extern "C" int sweep_apply_launch(const long long* geom,
 }
 
 // 1 where sweep_apply_launch, handed the same geom and ins, copies every
-// window row as whole 16-byte blocks (copy16), else 0.  Launches nothing.
+// window row by the flat index of 16-byte blocks and end pieces (copy16),
+// else 0.  Launches nothing.
 extern "C" int sweep_apply_copy16(const long long* geom,
                                   const void* const* ins) {
-  return rows_copy16(geom, ins) ? 1 : 0;
+  int head, tail;
+  return rows_copy16(geom, ins, &head, &tail) ? 1 : 0;
 }
 
 // CTAs of the (dtype, sweep axis) instantiation resident on one SM at

@@ -7,15 +7,17 @@
 // and shared start share their alignment, else element by element;
 // load_rows where the rows are not contiguous) and sweep_apply.cu's
 // (load_rows_pitched: shared rows padded to their source's alignment,
-// copied as 16/8/4/2-byte pieces).  The second does all the first does;
-// moving the chain onto it is listed in ROADMAP.md.
+// copied as 16/8/4/2-byte pieces, with what lies outside the input
+// zero-filled).  The second does all the first does; moving the chain
+// onto it is listed in ROADMAP.md.
 //
 // A params struct P passed to these helpers has the fields
-//   in_stride[3] (element strides of the padded input), win[3] (window
+//   in_stride[3] (element strides of the input), win[3] (window
 //   extent per axis), rows (ring depth in sweep rows); load_rows and
 //   load_rows_wide also read sweep, c0, c1 (sweep and cross axes) and
-//   load_rows_wide copy16; load_rows_pitched reads copy16, pitch, plane
-//   and group.
+//   load_rows_wide copy16; load_rows_pitched reads copy16, head, tail,
+//   span, pitch, plane, group, n[3] (the input's extents) and org[3] (the
+//   window coordinate of the input's element 0).
 
 #pragma once
 
@@ -281,60 +283,166 @@ __device__ __forceinline__ void copy_run_pieces(T* dst, const T* src,
   }
 }
 
+// Copy `bytes` (4, 8 or 16) from global to shared memory by cp.async, of
+// which the first `valid` come from src and the rest are zeros (the
+// src-size operand); with valid 0 nothing is read, but src must still be
+// a mapped address aligned to `bytes`.
+__device__ __forceinline__ void copy_zfill(unsigned char* dst,
+                                          const unsigned char* src,
+                                          unsigned bytes, unsigned valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if (bytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid));
+  } else if (bytes == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(valid));
+  }
+}
+
 // load_rows_wide for a ring whose window rows lie P.pitch elements apart
 // along c0 and whose slots lie P.plane elements apart, with the axes
 // (kS sweep, kC0 < kC1 cross) and the block's kThreads threads known at
-// compile time.  Where P.copy16 (as in load_rows_wide, with the ring and
-// pitch 16-byte aligned), each thread copies whole blocks of a flat index;
-// else, with c1 the minor axis, a group of P.group lanes (a power of two
-// dividing 32) copies each row through copy_run_pieces, so a row reaches
-// 16-byte blocks whenever its shared start shares its source's address
-// modulo 16; else element by element, sweep rows fastest so that
-// neighbouring threads read neighbouring elements.
+// compile time.  Window coordinates are the tile's plus the halo: the
+// input's element 0 sits at window coordinate P.org (zero for a padded
+// buffer, the halo lo where the input is the caller's grid), and every
+// element outside the input's extents P.n reads as zero.
+//
+// Where P.copy16 (the input's base, sweep and c0 strides and the tile's
+// c1 extent all multiples of 16 bytes, c1 the minor axis, and each window
+// row a P.head-byte piece, whole 16-byte blocks and a P.tail-byte piece,
+// pieces of 0, 4 or 8 bytes), each thread copies one 16-byte block of a
+// flat index over (row, c0, block): with P.span every block the row
+// touches (the shared row has the room), else its whole blocks and then
+// one end piece a thread of a flat index over (row, c0, end).  A block or
+// piece outside the input is zero-filled by cp.async with a src-size of 0
+// from the input's base, one across its c1 end with the bytes inside.
+// Else, with c1 the minor axis, a group of P.group lanes (a power of two
+// dividing 32) copies each row's part inside the input through
+// copy_run_pieces, so a row reaches 16-byte blocks whenever its shared
+// start shares its source's address modulo 16, and stores zeros around
+// it; else element by element, sweep rows fastest so that neighbouring
+// threads read neighbouring elements.
 template <int kThreads, int kS, int kC0, int kC1, typename T,
           typename Params>
 __device__ void load_rows_pitched(const Params& P, const T* src, T* ring,
-                                  long long g0, int n, long long base_c0,
-                                  long long base_c1) {
+                                  long long g0, int n, int base_c0,
+                                  int base_c1) {
+  constexpr int kEs = static_cast<int>(sizeof(T));
   const int w1 = P.win[kC1];
   const int w0 = P.win[kC0];
   const int slot0 = static_cast<int>(g0 % P.rows);
-  const T* base = src + g0 * P.in_stride[kS] + base_c0 * P.in_stride[kC0] +
-                  base_c1 * P.in_stride[kC1];
-  const int ss = static_cast<int>(P.in_stride[kS]);
-  const int s0 = static_cast<int>(P.in_stride[kC0]);
+  const long long ss = P.in_stride[kS];
+  const long long s0 = P.in_stride[kC0];
+  // Input coordinates of the first window element of these rows.
+  const int i_s = static_cast<int>(g0) - P.org[kS];
+  const int i_0 = base_c0 - P.org[kC0];
+  const int i_1 = base_c1 - P.org[kC1];
+  const auto row_in = [&](int r, int x0) {
+    return static_cast<unsigned>(i_s + r) <
+               static_cast<unsigned>(P.n[kS]) &&
+           static_cast<unsigned>(i_0 + x0) < static_cast<unsigned>(P.n[kC0]);
+  };
   if (P.copy16) {
-    constexpr int kPer = 16 / static_cast<int>(sizeof(T));
-    const int nb = w1 / kPer;
+    // A row is P.head bytes up to its first 16-byte boundary, whole
+    // blocks, then P.tail bytes.  Where its shared row has room (P.span),
+    // every block the row touches is copied, the end pieces with the
+    // neighbours that share their blocks (never read); else its whole
+    // blocks, and the end pieces in a second, small loop.  The blocks of
+    // a call whose rows all lie inside the input copy unchecked.
+    constexpr int kPer = 16 / kEs;
+    const int pre = (16 - P.head) % 16, post = (16 - P.tail) % 16;
+    const int lead = P.span ? -pre / kEs : P.head / kEs;  // first block
+    const int nb = P.span ? (pre + w1 * kEs + post) / 16
+                          : (w1 * kEs - P.head - P.tail) / 16;
+    const int c_first = i_1 + lead;  // input column of a row's first block
     const FastDiv per_row = make_div(w0 * nb), per_run = make_div(nb);
-    for (int u = threadIdx.x; u < n * w0 * nb; u += kThreads) {
-      int rem, b;
-      const int r = divide(u, per_row, rem);
-      const int x0 = divide(rem, per_run, b);
-      int slot = slot0 + r;
-      if (slot >= P.rows) slot -= P.rows;
-      cp_async16(ring + slot * P.plane + x0 * P.pitch + b * kPer,
-                 base + static_cast<long long>(r) * ss + x0 * s0 + b * kPer);
+    T* const dst0 = ring + lead;
+    if (i_s >= 0 && i_s + n <= P.n[kS] && i_0 >= 0 &&
+        i_0 + w0 <= P.n[kC0] && c_first >= 0 &&
+        c_first + nb * kPer <= P.n[kC1]) {
+      const T* base = src + i_s * ss + i_0 * s0 + c_first;
+      const int ssi = static_cast<int>(ss), s0i = static_cast<int>(s0);
+      for (int u = threadIdx.x; u < n * w0 * nb; u += kThreads) {
+        int rem, b;
+        const int r = divide(u, per_row, rem);
+        const int x0 = divide(rem, per_run, b);
+        int slot = slot0 + r;
+        if (slot >= P.rows) slot -= P.rows;
+        cp_async16(dst0 + slot * P.plane + x0 * P.pitch + b * kPer,
+                   base + static_cast<long long>(r) * ssi + x0 * s0i +
+                       b * kPer);
+      }
+    } else {
+      for (int u = threadIdx.x; u < n * w0 * nb; u += kThreads) {
+        int rem, b;
+        const int r = divide(u, per_row, rem);
+        const int x0 = divide(rem, per_run, b);
+        int slot = slot0 + r;
+        if (slot >= P.rows) slot -= P.rows;
+        const int c = c_first + b * kPer;
+        const bool in = row_in(r, x0) && c >= 0 && c < P.n[kC1];
+        copy_zfill(
+            reinterpret_cast<unsigned char*>(dst0 + slot * P.plane +
+                                             x0 * P.pitch + b * kPer),
+            reinterpret_cast<const unsigned char*>(
+                in ? src + (i_s + r) * ss + (i_0 + x0) * s0 + c : src),
+            16, in ? min(16, (P.n[kC1] - c) * kEs) : 0);
+      }
+    }
+    if (!P.span && (P.head | P.tail)) {
+      const FastDiv per_row2 = make_div(2 * w0);
+      for (int u = threadIdx.x; u < n * w0 * 2; u += kThreads) {
+        int rem;
+        const int r = divide(u, per_row2, rem);
+        const int x0 = rem >> 1;
+        const int size = rem & 1 ? P.tail : P.head;
+        if (size == 0) continue;
+        const int at = rem & 1 ? lead + nb * kPer : 0;  // within the row
+        int slot = slot0 + r;
+        if (slot >= P.rows) slot -= P.rows;
+        const int c = i_1 + at;
+        const bool in = row_in(r, x0) && c >= 0 && c < P.n[kC1];
+        copy_zfill(
+            reinterpret_cast<unsigned char*>(ring + slot * P.plane +
+                                             x0 * P.pitch + at),
+            reinterpret_cast<const unsigned char*>(
+                in ? src + (i_s + r) * ss + (i_0 + x0) * s0 + c : src),
+            size, in ? min(size, (P.n[kC1] - c) * kEs) : 0);
+      }
     }
     return;
   }
+  const T zero = from_f32<T>(0.0f);
   if (P.in_stride[kC1] == 1) {
     const int lane = threadIdx.x & (P.group - 1);
     const int shift = __ffs(P.group) - 1;
     const FastDiv per_row = make_div(w0);
+    // The window columns inside the input, [j0, j1).
+    const int j0 = min(w1, max(0, -i_1));
+    const int j1 = max(j0, min(w1, P.n[kC1] - i_1));
     for (int run = threadIdx.x >> shift; run < n * w0;
          run += kThreads >> shift) {
       int x0;
       const int r = divide(run, per_row, x0);
       int slot = slot0 + r;
       if (slot >= P.rows) slot -= P.rows;
-      copy_run_pieces(ring + slot * P.plane + x0 * P.pitch,
-                      base + static_cast<long long>(r) * ss + x0 * s0, w1,
-                      lane, P.group);
+      T* dst = ring + slot * P.plane + x0 * P.pitch;
+      const bool in = row_in(r, x0);
+      const int a = in ? j0 : 0, b = in ? j1 : 0;  // copied: [a, b)
+      for (int e = lane; e < w1 - (b - a); e += P.group)
+        dst[e < a ? e : e + (b - a)] = zero;
+      if (b > a)
+        copy_run_pieces(dst + a,
+                        src + (i_s + r) * ss + (i_0 + x0) * s0 + i_1 + a,
+                        b - a, lane, P.group);
     }
     return;
   }
-  const int s1 = static_cast<int>(P.in_stride[kC1]);
+  const long long s1 = P.in_stride[kC1];
   const FastDiv by_n = make_div(n), by_w1 = make_div(w1);
   for (int u = threadIdx.x; u < n * w0 * w1; u += kThreads) {
     int r, x1;
@@ -342,8 +450,13 @@ __device__ void load_rows_pitched(const Params& P, const T* src, T* ring,
     const int x0 = divide(t, by_w1, x1);
     int slot = slot0 + r;
     if (slot >= P.rows) slot -= P.rows;
-    copy_elem(ring + slot * P.plane + x0 * P.pitch + x1,
-              base + static_cast<long long>(r) * ss + x0 * s0 + x1 * s1);
+    T* dst = ring + slot * P.plane + x0 * P.pitch + x1;
+    if (row_in(r, x0) &&
+        static_cast<unsigned>(i_1 + x1) < static_cast<unsigned>(P.n[kC1]))
+      copy_elem(dst,
+                src + (i_s + r) * ss + (i_0 + x0) * s0 + (i_1 + x1) * s1);
+    else
+      *dst = zero;
   }
 }
 

@@ -1,12 +1,18 @@
 """Host side of the port's stencil launch path.
 
 ``stencil_pallas`` / ``stencil_iterate`` / ``ir.run_program`` →
-:func:`multi_stencil_pallas` → ``ir.lower`` → :func:`_stencil_call` →
-:func:`embed_inputs` → :func:`_padded_call` → the two sweep kernels of
-:mod:`repro_torch.kernels.sweep`: ``sweep_apply`` for one zero-fill
-application over p RHS arrays, ``sweep_chain`` for a fused chain of T >= 2
-stages and for every launch, T = 1 included, that carries a boundary
-condition, a stage dtype other than the input's or a quantized stage.
+:func:`multi_stencil_pallas` → ``ir.lower`` → :func:`_stencil_call` → the
+two sweep kernels of :mod:`repro_torch.kernels.sweep`:
+
+* ``sweep_apply`` for one zero-fill application over p RHS arrays, handed
+  the caller's tensors as they are: the kernel reads each window row
+  from the grid and zero-fills what lies outside it, so such a launch
+  enqueues nothing but itself (no launch buffer, no trim);
+* ``sweep_chain`` for a fused chain of T >= 2 stages and for every
+  launch, T = 1 included, that carries a boundary condition, a stage
+  dtype other than the input's or a quantized stage: it runs on the
+  padded launch buffer :func:`embed_inputs` builds (the zero or
+  zero-point fill, periodic wrap bands), through :func:`_padded_call`.
 
 The frontends keep the JAX package's names and signatures for what the
 port supports — ``tile=`` (or ``None``: the planner), ``sweep_axis=``,
@@ -27,9 +33,10 @@ lookups, tune race and one ``kernel_launch`` span per launch with the
 launch's modelled bytes, flops and ms and its frontier shared memory —
 into a Chrome ``trace_event`` file (:mod:`repro_torch.obs`).  Traced or
 not, each call is timed in stages (``frontend``, ``decide``, and per
-launch ``launch_buffers``, ``sweep_launch``, ``trim``) and counts the
-device operations it enqueues, into ``repro_torch.obs.totals()``
-(:mod:`repro_torch.obs.stages`).
+launch ``launch_buffers``, ``sweep_launch`` and, after a padded launch,
+``trim``) and counts the device operations it enqueues, and the launches
+that read the caller's grid (``launch_buffers.direct``), into
+``repro_torch.obs.totals()`` (:mod:`repro_torch.obs.stages`).
 
 Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
 :class:`~repro_torch.plan.PlanCache` keeps plans across processes)
@@ -46,6 +53,7 @@ The entry points run on the card: ``device=None`` means ``"cuda"``, and
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -72,6 +80,7 @@ _FILL = obs.counter("device_ops.fill")
 _COPY_IN = obs.counter("device_ops.copy_in")
 _WRAP = obs.counter("device_ops.wrap")
 _TRIM_OP = obs.counter("device_ops.trim")
+_DIRECT = obs.counter("launch_buffers.direct")
 
 __all__ = [
     "stencil_pallas",
@@ -261,6 +270,15 @@ def _launch_inputs(us, offsets_w, tile, stages_w=None, bcs_w=None,
     return ins, offsets, weights, stages, lo_w, hi_w
 
 
+@lru_cache(maxsize=256)
+def _apply_geometry(offsets_w, tile):
+    """:func:`_launch_geometry` of a plain application, kept per
+    ``(offsets_w, tile)`` (tuples, as the frontend's static specs are):
+    ``(offsets, weights, lo_w, hi_w)``."""
+    offsets, weights, _, lo_w, hi_w = _launch_geometry(offsets_w, None, tile)
+    return offsets, weights, lo_w, hi_w
+
+
 def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
                   bcs_w=None, dtypes_w=None, window_kind="ring",
                   quants_w=None, in_quant=None):
@@ -273,10 +291,23 @@ def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
     zero_point)``) condition, store and quantize each stage; ``in_quant``
     declares the input as int8 codes of that quantization (a quantized
     hand-off from an earlier launch).  The result has the last stage's
-    dtype."""
+    dtype.
+
+    Without ``stages_w`` the launch is one zero-fill application, and
+    ``sweep_apply`` reads ``us`` as they are (``padded=False``): the
+    ``launch_buffers`` stage only looks up the launch's geometry, and the
+    output comes back at the grid's shape.  A chain launch runs on the
+    padded buffers of :func:`_launch_inputs` and is trimmed back."""
     u0 = us[0]
     d = u0.ndim
     tile = tuple(int(t) for t in tile)
+    if stages_w is None:
+        with _BUFFERS:
+            offsets, weights, lo_w, hi_w = _apply_geometry(
+                tuple(offsets_w), tile)
+            obs.count(_DIRECT)
+        return sweep_apply(us, offsets, weights, lo_w, hi_w, tile, sweep,
+                           pipelined, padded=False)
     ins, offsets, weights, stages, lo_w, hi_w = _launch_inputs(
         us, offsets_w, tile, stages_w, bcs_w, dtypes_w, quants_w, in_quant
     )

@@ -8,14 +8,19 @@
   per-stage storage dtypes and int8-quantized frontiers (parts B1 + B3 +
   B4 + B5 + B6).
 
-Both take the *padded* launch buffers the host side builds
-(``lo_w + k·tile + hi_w`` per dim) and return the padded result
-(``k·tile`` per dim).  On a CPU tensor a wrapper runs its plain version;
-on a CUDA tensor it launches its kernel or raises — there is no fallback.
+The chain takes the *padded* launch buffer the host side builds
+(``lo_w + k·tile + hi_w`` per dim) and returns the padded result
+(``k·tile`` per dim).  The apply takes such buffers too, or, with
+``padded=False``, the caller's grid as it is: its kernel zero-fills the
+window where it leaves the grid and returns the grid's shape.  On a CPU
+tensor a wrapper runs its plain version; on a CUDA tensor it launches its
+kernel or raises — there is no fallback.
 Each wrapper is the call's ``sweep_launch`` stage and counts its kernel
 in ``repro_torch.obs.totals()``: ``device_ops.kernel`` for either
-version, ``launches.sweep_apply`` / ``launches.sweep_chain`` for a launch
-on the card alone, and ``launch_table_hit`` / ``launch_table_miss`` for
+version (and, for the plain apply on a caller's grid, the fill and the
+copy-in of the padded copy it makes, which the kernel does not),
+``launches.sweep_apply`` / ``launches.sweep_chain`` for a launch on the
+card alone, and ``launch_table_hit`` / ``launch_table_miss`` for
 the card's launch tables (a miss, or a kernel library's load, makes the
 call cold).
 """
@@ -74,6 +79,8 @@ _BC_ROW = 8  # int32 per correction term; see _bc_table
 
 _SWEEP_LAUNCH = obs.stage("sweep_launch")
 _KERNEL = obs.counter("device_ops.kernel")
+_FILL = obs.counter("device_ops.fill")
+_COPY_IN = obs.counter("device_ops.copy_in")
 _APPLY_LAUNCHES = obs.counter("launches.sweep_apply")
 _CHAIN_LAUNCHES = obs.counter("launches.sweep_chain")
 _TABLE_HIT = obs.counter("launch_table_hit")
@@ -91,13 +98,21 @@ def _out_shape(x: torch.Tensor, lo_w, hi_w) -> tuple[int, ...]:
     )
 
 
-def _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep) -> bool:
-    nswp = _out_shape(x, lo_w, hi_w)[sweep] // int(tile[sweep])
+def _apply_out_shape(x: torch.Tensor, lo_w, hi_w, padded) -> tuple:
+    """An apply's output shape: the padded buffer's less its halo, or the
+    caller's grid's own."""
+    return _out_shape(x, lo_w, hi_w) if padded else tuple(x.shape)
+
+
+def _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep,
+                         padded=True) -> bool:
+    n = _apply_out_shape(x, lo_w, hi_w, padded)[sweep]
+    nswp = -(-n // int(tile[sweep]))
     return bool(pipelined) and nswp > 1 and (lo_w[sweep] + hi_w[sweep]) > 0
 
 
 def _check(ins: Sequence[torch.Tensor], lo_w, hi_w, tile,
-           dtypes=_APPLY_DTYPES) -> None:
+           dtypes=_APPLY_DTYPES, padded=True) -> None:
     x0 = ins[0]
     if not 1 <= x0.ndim <= 3 or len(tile) != x0.ndim:
         raise ValueError(
@@ -112,6 +127,11 @@ def _check(ins: Sequence[torch.Tensor], lo_w, hi_w, tile,
     if x0.dtype not in dtypes:
         names = " or ".join(str(t).removeprefix("torch.") for t in dtypes)
         raise TypeError(f"this sweep kernel takes {names}, got {x0.dtype}")
+    if not padded:
+        if x0.numel() == 0 or min(int(t) for t in tile) < 1:
+            raise ValueError(
+                f"an empty grid {tuple(x0.shape)} or tile {tuple(tile)}")
+        return
     for n, t in zip(_out_shape(x0, lo_w, hi_w), tile):
         if n <= 0 or n % int(t):
             raise ValueError(
@@ -137,7 +157,9 @@ def _strides(x: torch.Tensor, d: int):
 
 
 def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in, threads):
-    """The int64 geometry head both C entry points read (23 entries)."""
+    """The int64 geometry head both C entry points read (23 entries); a
+    last tile may stop short of the tile (the apply on the caller's
+    grid)."""
     d = x.ndim
     tile3 = _lift(tile, d, 1)
     lo3 = _lift(lo_w, d, 0)
@@ -145,7 +167,7 @@ def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in, threads):
         t + l + h for t, l, h in zip(tile3, lo3, _lift(hi_w, d, 0))
     )
     s = int(sweep) + 3 - d
-    ntiles = tuple(o // t for o, t in zip(_lift(out.shape, d, 1), tile3))
+    ntiles = tuple(-(-o // t) for o, t in zip(_lift(out.shape, d, 1), tile3))
     cross = [i for i in range(3) if i != s]
     return [
         *_strides(x, d), *_strides(out, d), *tile3, *lo3, *win3,
@@ -236,10 +258,15 @@ def _taps(offsets, weights, lo, hi, d):
 
 
 def sweep_apply_plain(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-                      pipelined=True):
+                      pipelined=True, *, padded=True):
     """The tap loop over the zero-padded inputs: ``acc = acc + w·x[o]`` in
     f32, RHS by RHS in ``zip(offsets, weights)`` order, stored at the
-    input dtype."""
+    input dtype.  ``padded=False``: the inputs are the caller's grids,
+    padded here with the halo's zeros (the result has their shape)."""
+    if not padded:
+        pad = [v for lo, hi in zip(lo_w[::-1], hi_w[::-1])
+               for v in (int(lo), int(hi))]
+        ins = [torch.nn.functional.pad(x, pad) for x in ins]
     out_shape = _out_shape(ins[0], lo_w, hi_w)
     acc = torch.zeros(out_shape, dtype=torch.float32, device=ins[0].device)
     for x, offs, wts in zip(ins, offsets, weights):
@@ -253,16 +280,50 @@ def sweep_apply_plain(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     return acc.to(ins[0].dtype)
 
 
+def _row_pad(x, lo_w, hi_w, tile, sweep) -> int:
+    """Elements a direct read's shared window row needs beyond the window
+    for the flat copy to take every 16-byte block the row touches: where
+    the rows take the flat copy (c1 the minor axis; the sweep and c0
+    strides and the tile's c1 extent 16-byte multiples; each row a piece
+    of 0, 4 or 8 bytes up to its first 16-byte boundary and after its
+    last) and have an end piece, the bytes from each piece out to its
+    block's edge; else 0.  (The base address is the launcher's to check:
+    off a 16-byte boundary, no row takes the flat copy.)"""
+    d = x.ndim
+    es = x.element_size()
+    s = int(sweep) + 3 - d
+    c0, c1 = [i for i in range(3) if i != s]
+    st3 = _strides(x, d)
+    if st3[c1] != 1 or any(v * es % 16 for v in (
+            st3[s], st3[c0], _lift(tile, d, 1)[c1])):
+        return 0
+    a1 = c1 - 3 + d  # c1's axis of the grid
+    w1 = int(tile[a1]) + int(lo_w[a1]) + int(hi_w[a1])
+    head = int(lo_w[a1]) * es % 16
+    tail = (w1 * es - head) % 16
+    if head not in (0, 4, 8) or tail not in (0, 4, 8) or w1 * es < head + tail:
+        return 0
+    return ((16 - head) % 16 + (16 - tail) % 16) // es
+
+
+def _apply_ctas(x, sweep, smem) -> int:
+    """CTAs of the apply kernel an SM at ``smem`` bytes: the card's own
+    occupancy query, or the published H100's for a CPU tensor."""
+    if x.device.type == "cuda":
+        return apply_occupancy(x.dtype, int(sweep) + 3 - x.ndim, smem)
+    return H100_SXM.ctas_per_sm("apply", smem)
+
+
 def _apply_key(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-               pipelined) -> tuple:
+               pipelined, padded=True) -> tuple:
     """Everything an apply launch's arrays depend on — the buffers' shape,
-    strides, dtype, device and count, the taps (each RHS's offsets as
-    int64 and weights rounded to f32, as bytes) and the options — as one
-    hashable tuple."""
+    strides, dtype, device and count, whether they are padded, the taps
+    (each RHS's offsets as int64 and weights rounded to f32, as bytes) and
+    the options — as one hashable tuple."""
     x = ins[0]
     return (
         "apply", tuple(x.shape), tuple(x.stride()), str(x.dtype),
-        str(x.device), len(ins),
+        str(x.device), len(ins), bool(padded),
         tuple(np.asarray(o, dtype=np.int64).tobytes() for o in offsets),
         tuple(np.asarray(w, dtype=np.float32).tobytes() for w in weights),
         tuple(int(v) for v in lo_w), tuple(int(v) for v in hi_w),
@@ -271,21 +332,41 @@ def _apply_key(ins, offsets, weights, lo_w, hi_w, tile, sweep,
 
 
 def _apply_plan(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-                pipelined) -> dict:
+                pipelined, padded=True) -> dict:
     """Check an apply launch and build what the kernel is handed but the
     buffers: the output's shape, the shared bytes and the C arrays.
     Raises on what the kernel does not take."""
     x = ins[0]
     d = x.ndim
-    pipe = _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep)
-    smem = apply_smem_bytes(
-        tile, sweep, x.element_size(), list(zip(lo_w, hi_w)), x.stride(),
-        n_inputs=len(ins), pipelined=pipe,
-    )
-    out = torch.empty(_out_shape(x, lo_w, hi_w), dtype=x.dtype,
-                      device="meta")
+    pipe = _effective_pipelined(pipelined, x, lo_w, hi_w, tile, sweep,
+                                padded)
+    layout = (tile, sweep, x.element_size(), list(zip(lo_w, hi_w)),
+              x.stride())
+    smem = apply_smem_bytes(*layout, n_inputs=len(ins), pipelined=pipe)
+    # A direct read's rows copy their end pieces with the 16-byte blocks
+    # around them where the wider shared rows leave the CTAs an SM as
+    # they are (the pieces, each its own line, cost more apart).
+    row_pad = 0 if padded else _row_pad(x, lo_w, hi_w, tile, sweep)
+    if row_pad:
+        try:
+            wide = apply_smem_bytes(*layout, n_inputs=len(ins),
+                                    pipelined=pipe, row_pad=row_pad)
+        except ValueError:
+            wide = None
+        if wide is not None and (_apply_ctas(x, sweep, wide)
+                                 >= _apply_ctas(x, sweep, smem)):
+            smem = wide
+        else:
+            row_pad = 0
+    out = torch.empty(_apply_out_shape(x, lo_w, hi_w, padded),
+                      dtype=x.dtype, device="meta")
     geom = _geom(x, out, lo_w, hi_w, tile, sweep, pipe, len(ins),
                  APPLY_THREADS)
+    # The inputs' extents, the window coordinate of their element 0 and
+    # the output's extents.
+    geom += [*_lift(x.shape, d, 1),
+             *(_lift((0,) * d if padded else lo_w, d, 0)),
+             *_lift(out.shape, d, 1), row_pad]
     tap_begin = [0]
     tap_off: list[int] = []
     tap_w: list[float] = []
@@ -323,25 +404,34 @@ def _cached_plan(key, build) -> dict:
 
 
 def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-                pipelined=True):
-    """One stencil application over p padded RHS buffers (kernel 1).
+                pipelined=True, *, padded=True):
+    """One stencil application over p RHS arrays (kernel 1).
 
-    ``offsets[a]``/``weights[a]`` are RHS a's taps; ``lo_w``/``hi_w`` the
-    window halo the buffers carry; the result is the padded output.  On
-    the card a launch's arrays are built once per geometry and kept
+    ``offsets[a]``/``weights[a]`` are RHS a's taps and ``lo_w``/``hi_w``
+    the window halo they reach.  ``padded`` says what the inputs are, as
+    the caller knows it (a shape cannot tell): launch buffers that carry
+    the halo and the round-up to the tile, whose result is the padded
+    output; or, ``False``, the caller's grids as they are, read with
+    zeros outside them, whose result has their shape.  On the card a
+    launch's arrays are built once per geometry and kept
     (:func:`_apply_plan`)."""
     with _SWEEP_LAUNCH:
         ins = list(ins)
-        _check(ins, lo_w, hi_w, tile)
+        _check(ins, lo_w, hi_w, tile, padded=padded)
         args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
         dev = ins[0].device
         if dev.type == "cpu":
-            _apply_plan(*args)
+            _apply_plan(*args, padded)
+            if not padded:
+                # The plain version pads each grid: a fill and a copy-in.
+                obs.count(_FILL, len(ins))
+                obs.count(_COPY_IN, len(ins))
             obs.count(_KERNEL)
-            return sweep_apply_plain(*args)
+            return sweep_apply_plain(*args, padded=padded)
         if dev.type != "cuda":
             raise RuntimeError(f"sweep_apply: unsupported device {dev}")
-        plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
+        plan = _cached_plan(_apply_key(*args, padded),
+                            lambda: _apply_plan(*args, padded))
         out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
         fn = _entry("sweep_apply")
         with torch.cuda.device(dev):
@@ -356,17 +446,19 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
 
 
 def apply_copy16(ins, offsets, weights, lo_w, hi_w, tile, sweep,
-                 pipelined=True) -> bool:
+                 pipelined=True, *, padded=True) -> bool:
     """Whether :func:`sweep_apply` with these arguments copies every window
-    row as whole 16-byte blocks (the kernel's ``copy16`` path), as the
+    row by one flat index of 16-byte blocks, with at most a 4- or 8-byte
+    piece at each end of a row (the kernel's ``copy16`` path), as the
     launcher decides it for these buffers.  Needs the card; launches
     nothing."""
     ins = list(ins)
-    _check(ins, lo_w, hi_w, tile)
+    _check(ins, lo_w, hi_w, tile, padded=padded)
     args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
     if ins[0].device.type != "cuda":
         raise RuntimeError("apply_copy16: the launcher runs on the card only")
-    plan = _cached_plan(_apply_key(*args), lambda: _apply_plan(*args))
+    plan = _cached_plan(_apply_key(*args, padded),
+                        lambda: _apply_plan(*args, padded))
     return bool(_entry("sweep_apply", "copy16")(
         plan["geom"], _c(ctypes.c_void_p, [x.data_ptr() for x in ins])))
 

@@ -8,12 +8,14 @@ Every port call (``stencil_pallas`` / ``stencil_iterate`` /
   ``ir.lower`` and the static specs;
 * ``decide``: the launch decision (``validate_plan_call`` or
   ``_auto_tile``: signature, tuner, plan memo) up to the resolved tile;
-* ``launch_buffers``: each launch's ``embed_inputs`` (the fill, the
-  copy-in, any wrap bands; a sharded launch's scatter and halo exchange);
+* ``launch_buffers``: each launch's geometry and, for a chain launch,
+  its ``embed_inputs`` (the fill, the copy-in, any wrap bands; a sharded
+  launch's scatter and halo exchange); a plain application reads the
+  caller's grid and builds no buffer (counter ``launch_buffers.direct``);
 * ``sweep_launch``: the ``sweep_apply`` / ``sweep_chain`` wrapper (checks,
   the launch-table key and lookup, the output's allocation, the launch);
-* ``trim``: the slice of the padded result back to the grid (a sharded
-  launch's gather).
+* ``trim``: the slice of a padded result back to the grid (a sharded
+  launch's gather); a launch on the caller's grid has none.
 
 A stage's time is host time: on the card the work it enqueues runs after
 it returns.  Its self time is its time less its child stages'.  A call
@@ -61,6 +63,7 @@ COUNTERS = (
     "device_ops.fill", "device_ops.copy_in", "device_ops.wrap",
     "device_ops.kernel", "device_ops.trim",
     "launches.sweep_apply", "launches.sweep_chain", "launches.conv1d",
+    "launch_buffers.direct",
 )
 # One slot a counter, then three a stage: its count, its ns, and the ns
 # of the stages closed directly inside it (its self time is the difference).

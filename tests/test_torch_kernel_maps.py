@@ -14,7 +14,12 @@ the CPU:
   slot holds), the compiled shapes' tap offsets at each sweep axis, the
   shared-memory row placement (each row at its source row's address
   modulo 16) within the bytes the wrapper passes, and the piecewise row
-  copy.
+  copy;
+* the apply's direct read of the caller's grid: windows laid over the
+  grid at the tile's base less the halo, zeros outside it, outputs past
+  it neither computed nor stored; the flat copy's units (a head piece,
+  16-byte blocks, a tail piece), their zero fill and the launcher's
+  choice of the flat copy at the planned tiles.
 """
 
 import itertools
@@ -199,11 +204,14 @@ def _roles(d, sweep_axis):
 
 
 def _apply_replay(ins, offsets, weights, lo_w, hi_w, tile, sweep_axis,
-                  pipelined):
+                  pipelined, padded=True):
     """sweep_apply_kernel thread by thread: items of K_ROWS rows at one
     cross position, the step's first slot m0 kept from step to step, row
     offsets from the slot K_REACH rows up, and the window_step load order;
-    every slot read is checked against the padded row it must hold."""
+    every slot read is checked against the padded row it must hold.
+    ``padded=False``: the inputs are the caller's grids, the window's
+    element 0 at grid coordinate (tile base - lo), zeros outside the
+    grid, and items and rows past the grid skipped."""
     x0_ = ins[0]
     d = x0_.ndim
     s, c0, c1 = _roles(d, sweep_axis)
@@ -214,8 +222,10 @@ def _apply_replay(ins, offsets, weights, lo_w, hi_w, tile, sweep_axis,
     lo3 = np.array(_lift(d, lo_w, 0))[list(perm)]
     hi3 = np.array(_lift(d, hi_w, 0))[list(perm)]
     win = tile3 + lo3 + hi3
-    out_shape = np.array(X[0].shape) - lo3 - hi3
-    ntiles = out_shape // tile3
+    n_in = np.array(X[0].shape)
+    org = np.zeros(3, np.int64) if padded else lo3
+    out_shape = n_in - lo3 - hi3 if padded else n_in
+    ntiles = -(-out_shape // tile3)
     t_s, h_s, nswp = int(tile3[0]), int(lo3[0] + hi3[0]), int(ntiles[0])
     pipe = bool(pipelined) and nswp > 1 and h_s > 0
     rows = int(win[0]) + (t_s if pipe else 0)
@@ -237,9 +247,16 @@ def _apply_replay(ins, offsets, weights, lo_w, hi_w, tile, sweep_axis,
 
         def load(g0, n):
             for g in range(g0, g0 + n):
+                # load_rows_pitched: input coordinates, zeros outside
+                i_s, i_0, i_1 = g - org[0], b0 - org[1], b1 - org[2]
+                j0, k0 = max(0, -i_0), max(0, -i_1)
+                j1 = min(win[1], n_in[1] - i_0)
+                k1 = min(win[2], n_in[2] - i_1)
                 for a in range(len(X)):
-                    ring[a][g % rows] = X[a][g, b0:b0 + win[1],
-                                             b1:b1 + win[2]]
+                    ring[a][g % rows] = 0
+                    if 0 <= i_s < n_in[0] and j1 > j0 and k1 > k0:
+                        ring[a][g % rows, j0:j1, k0:k1] = X[a][
+                            i_s, i_0 + j0:i_0 + j1, i_1 + k0:i_1 + k1]
                 tag[g % rows] = g
 
         m0 = int(lo3[0]) % rows
@@ -257,6 +274,8 @@ def _apply_replay(ins, offsets, weights, lo_w, hi_w, tile, sweep_axis,
             for u in range(nchunks * t0 * t1):
                 c, rem = divmod(u, t0 * t1)
                 x0, x1 = divmod(rem, t1)
+                if b0 + x0 >= out_shape[1] or b1 + x1 >= out_shape[2]:
+                    continue  # past the grid
                 m = m0 + c * K_ROWS
                 while m >= rows:
                     m -= rows
@@ -283,12 +302,14 @@ def _apply_replay(ins, offsets, weights, lo_w, hi_w, tile, sweep_axis,
                             acc[i] = acc[i] + w * v
                 for i in range(K_ROWS):
                     r = c * K_ROWS + i
-                    if r < t_s:
+                    if r < min(t_s, out_shape[0] - g_step):
+                        assert np.isnan(out[g_step + r, b0 + x0, b1 + x1])
                         out[g_step + r, b0 + x0, b1 + x1] = acc[i]
             m0 = (m0 + t_s) % rows
     inv = np.argsort(perm)
     res = out.transpose(inv).reshape(tuple(
-        n - l - h for n, l, h in zip(x0_.shape, lo_w, hi_w)))
+        n - l - h for n, l, h in zip(x0_.shape, lo_w, hi_w)) if padded
+        else tuple(x0_.shape))
     return res
 
 
@@ -307,12 +328,17 @@ APPLY_MAP_CASES = [
     ((41, 53), (16, 16), 0),
     ((41, 53), (16, 6), 1),
     ((70,), (8,), 0),
+    # thinner than the halo along the sweep axis, along c1
+    ((3, 13, 14), (4, 8, 8), 0),
+    ((12, 13, 3), (4, 8, 8), 1),
 ]
 
 
+@pytest.mark.parametrize("padded", [True, False], ids=["padded", "direct"])
 @pytest.mark.parametrize("pipelined", [True, False])
 @pytest.mark.parametrize("case", range(len(APPLY_MAP_CASES)))
-def test_apply_thread_items_and_ring_slots_equal_plain(case, pipelined):
+def test_apply_thread_items_and_ring_slots_equal_plain(case, pipelined,
+                                                       padded):
     shape, tile, sw = APPLY_MAP_CASES[case]
     d = len(shape)
     # a compiled shape, a star in reversed order (table-driven) and, in
@@ -326,7 +352,14 @@ def test_apply_thread_items_and_ring_slots_equal_plain(case, pipelined):
         shape).astype(np.float32)) for i in range(len(specs))]
     ins, o, ws, _, lo_w, hi_w = st._launch_inputs(us, tuple(specs), tile)
     want = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
-    got = _apply_replay(ins, o, ws, lo_w, hi_w, tile, sw, pipelined)
+    if padded:
+        got = _apply_replay(ins, o, ws, lo_w, hi_w, tile, sw, pipelined)
+    else:
+        got = _apply_replay(us, o, ws, lo_w, hi_w, tile, sw, pipelined,
+                            padded=False)
+        want = want[tuple(slice(0, n) for n in shape)]
+        assert np.array_equal(got, sweep.sweep_apply_plain(
+            us, o, ws, lo_w, hi_w, tile, sw, padded=False).numpy())
     assert np.array_equal(got, want.numpy())
 
 
@@ -354,7 +387,7 @@ def test_compiled_shapes_are_the_repos_operators():
         assert np.array_equal(got, want), shape
 
 
-def _layout(tile, sweep_axis, es, halo, strides, pipelined):
+def _layout(tile, sweep_axis, es, halo, strides, pipelined, row_pad=0):
     """sweep_apply_launch's shared-memory layout: (pitch, plane bytes,
     ring bytes), and whether copy16 holds apart from the base address."""
     d = len(tile)
@@ -364,7 +397,7 @@ def _layout(tile, sweep_axis, es, halo, strides, pipelined):
     hi3 = _lift(d, [h[1] for h in halo], 0)
     st3 = _lift(d, strides, 0)
     win = [t + lo + hi for t, lo, hi in zip(tile3, lo3, hi3)]
-    pitch = win[c1]
+    pitch = win[c1] + row_pad
     if st3[c1] == 1:
         while (pitch - st3[c0]) * es % 16:
             pitch += 1
@@ -462,6 +495,131 @@ def test_row_copy_pieces_cover_the_run_aligned(es):
             assert sum(size == 16 for _, size in units) >= n * es // 16 - 1
 
 
+def _flat_copy(shape, tile, sweep_axis, es, halo, padded, base=0):
+    """sweep_apply.cu::rows_copy16 for contiguous inputs of ``shape``
+    starting at address ``base``: (head, tail) bytes where every window
+    row copies by the flat index, else None."""
+    d = len(shape)
+    s, c0, c1 = _roles(d, sweep_axis)
+    st3 = _lift(d, [int(np.prod(shape[i + 1:])) for i in range(d)], 0)
+    tile3 = _lift(d, tile, 1)
+    lo3 = _lift(d, [h[0] for h in halo], 0)
+    hi3 = _lift(d, [h[1] for h in halo], 0)
+    w1 = tile3[c1] + lo3[c1] + hi3[c1]
+    head = (0 if padded else lo3[c1]) * es % 16
+    tail = (w1 * es - head) % 16
+    ok = (st3[c1] == 1 and st3[s] * es % 16 == 0 and st3[c0] * es % 16 == 0
+          and tile3[c1] * es % 16 == 0 and head in (0, 4, 8)
+          and tail in (0, 4, 8) and w1 * es >= head + tail
+          and base % 16 == 0)
+    return (head, tail) if ok else None
+
+
+def _flat_units(head, tail, w1, es, span):
+    """load_rows_pitched's flat copy of one window row: (byte from the
+    window row's first element, size) of each cp.async — with ``span``
+    every 16-byte block the row touches, else its whole blocks, then its
+    end pieces."""
+    pre, post = (16 - head) % 16, (16 - tail) % 16
+    if span:
+        return [(-pre + 16 * b, 16)
+                for b in range((pre + w1 * es + post) // 16)]
+    nb = (w1 * es - head - tail) // 16
+    units = [(head + 16 * b, 16) for b in range(nb)]
+    if head:
+        units.append((0, head))
+    if tail:
+        units.append((head + 16 * nb, tail))
+    return units
+
+
+# grid, tile, sweep, dtype bytes, halo: the benchmark's planned tiles (the
+# 13-point star at 512^3 and 128^3, the 27-point box at 512^3), bf16, and
+# ragged grids whose last tile column reaches past the grid
+FLAT_CASES = [
+    ((512, 512, 512), (8, 32, 32), 0, 4, [(2, 2)] * 3),
+    ((128, 128, 128), (128, 2, 32), 0, 4, [(2, 2)] * 3),
+    ((512, 512, 512), (8, 32, 32), 0, 4, [(1, 1)] * 3),
+    ((256, 256, 256), (8, 16, 32), 0, 2, [(2, 2)] * 3),
+    ((130, 66, 516), (8, 16, 32), 0, 4, [(2, 2)] * 3),
+    ((40, 36, 44), (4, 8, 32), 1, 4, [(2, 2)] * 3),
+    ((40, 48, 40), (4, 8, 32), 1, 2, [(2, 2)] * 3),
+]
+
+
+@pytest.mark.parametrize("span", [False, True], ids=["pieces", "span"])
+@pytest.mark.parametrize("case", range(len(FLAT_CASES)))
+def test_flat_copy_units_zero_fill_the_window_outside_the_grid(case, span):
+    """The flat copy on the caller's grid, byte for byte: each copy is one
+    cp.async (4, 8 or 16 bytes) aligned to its size at its source and in
+    shared memory, reads only bytes inside the grid (a copy outside it
+    reads nothing from the grid's base), writes only inside its shared
+    row (whose pitch has the room for the blocks around the end pieces
+    where ``span``: ``sweep._row_pad``), and leaves the zero-padded
+    grid's window row in place, for every tile column of the grid."""
+    shape, tile, sw, es, halo = FLAT_CASES[case]
+    flat = _flat_copy(shape, tile, sw, es, halo, padded=False)
+    assert flat is not None
+    head, tail = flat
+    d = len(shape)
+    s, c0, c1 = _roles(d, sw)
+    strides = [int(np.prod(shape[i + 1:])) for i in range(d)]
+    lo_w, hi_w = [h[0] for h in halo], [h[1] for h in halo]
+    row_pad = sweep._row_pad(torch.empty(shape, dtype={
+        2: torch.bfloat16, 4: torch.float32}[es]), lo_w, hi_w, tile, sw)
+    assert row_pad * es == (16 - head) % 16 + (16 - tail) % 16
+    if not span:
+        row_pad = 0
+    pipe = _lift(d, shape, 1)[s] > _lift(d, tile, 1)[s]
+    pitch, plane, ring, _, _, tile3, win, st3 = _layout(
+        tile, sw, es, halo, strides, pipe, row_pad)
+    shape3 = _lift(d, shape, 1)
+    lo3 = _lift(d, lo_w, 0)
+    n1 = shape3[c1]
+    units = _flat_units(head, tail, win[c1], es, span)
+    shift = -lo3[c1] * es % 16  # ring_of: the window's alignment
+    row = np.arange(n1 * es, dtype=np.int64) + 1  # an input row's bytes
+    for tc1 in range(-(-n1 // tile3[c1])):
+        i_1 = tc1 * tile3[c1] - lo3[c1]   # the window row's first column
+        assert i_1 * es % 16 == shift
+        got = np.full(pitch * es, -1, np.int64)  # the shared row's bytes
+        lead = shift if span else 0  # the window's first byte
+        for at, size in units:
+            b = i_1 * es + at
+            valid = max(0, min(size, n1 * es - b)) if b >= 0 else 0
+            assert size in (4, 8, 16) and 0 <= valid <= size
+            assert (shift + at) % size == 0 and b % size == 0
+            assert 0 <= lead + at and lead + at + size <= pitch * es
+            got[lead + at:lead + at + size] = 0
+            if valid:
+                assert 0 <= b and b + valid <= n1 * es
+                got[lead + at:lead + at + valid] = row[b:b + valid]
+        want = np.zeros(win[c1] * es, np.int64)
+        lo_b, hi_b = max(0, i_1 * es), min(n1 * es, (i_1 + win[c1]) * es)
+        want[lo_b - i_1 * es:hi_b - i_1 * es] = row[lo_b:hi_b]
+        assert np.array_equal(got[lead:lead + win[c1] * es], want), tc1
+    # A slot's last row ends inside the slot's plane past the shift, so
+    # each ring's rows end inside the bytes the wrapper passes.
+    assert shift + (win[c0] - 1) * pitch * es + win[c1] * es <= plane + 16
+    assert ring == tiling.apply_smem_bytes(tile, sw, es, halo, strides,
+                                           pipelined=pipe, row_pad=row_pad)
+
+
+def test_flat_copy_at_the_planned_tiles():
+    """The launcher's choice on the caller's grid: the planned f32 tiles
+    of the benchmark's grids keep the flat copy (an 8- or 4-byte piece at
+    each end of a row, 16-byte blocks between); a grid whose rows are
+    not 16-byte multiples, or a base off a 16-byte boundary, does not."""
+    star, box = [(2, 2)] * 3, [(1, 1)] * 3
+    assert _flat_copy((512,) * 3, (8, 32, 32), 0, 4, star, False) == (8, 8)
+    assert _flat_copy((128,) * 3, (128, 2, 32), 0, 4, star, False) == (8, 8)
+    assert _flat_copy((512,) * 3, (8, 32, 32), 0, 4, box, False) == (4, 4)
+    assert _flat_copy((516,) * 3, (8, 32, 32), 0, 4, star, True) == (0, 0)
+    assert _flat_copy((37, 41, 45), (8, 16, 32), 0, 4, star, False) is None
+    assert _flat_copy((512,) * 3, (8, 32, 32), 0, 4, star, False,
+                      base=4) is None
+
+
 def test_apply_plan_key_covers_what_the_arrays_hold():
     """The apply wrapper keeps its launch arrays per key: launches that
     differ in a weight (as f32), an offset, the tile, the sweep axis, the
@@ -494,3 +652,4 @@ def test_apply_plan_key_covers_what_the_arrays_hold():
     assert key(ins=ins * 2, offsets=o * 2, weights=ws * 2) != base
     assert key(ins=[ins[0].transpose(0, 1).contiguous()
                     .transpose(0, 1)]) != base
+    assert key(padded=False) != base

@@ -38,6 +38,7 @@ from repro_torch.core.cache_fitting import star_stencil  # noqa: E402
 from repro_torch.core.tiling import (  # noqa: E402
     apply_smem_bytes,
     halo_from_offsets,
+    launch_smem,
     sweep_smem_bytes,
 )
 from repro_torch.kernels import conv1d, sweep  # noqa: E402
@@ -61,6 +62,9 @@ CASES = [
     ((41, 53), (16, 16), 0),
     ((70,), (8,), 0),
 ]
+
+
+BOX27 = np.array(list(itertools.product((-1, 0, 1), repeat=3)))
 
 
 @pytest.fixture
@@ -250,6 +254,179 @@ def test_apply_copy16_reports_the_launchers_row_copies(dev, dtype, whole):
     assert _same_bits(k, sweep.sweep_apply_plain(*args))
 
 
+# -- the apply on the caller's grid (padded=False) ----------------------------
+
+# shape, tile, sweep_axis: each sweep axis; tiles that do not divide the
+# grid; rows whose bytes are not a multiple of 16 (45 and 41 f32); grids
+# thinner than the 13-point star's halo along the sweep axis, c0 and c1;
+# aligned grids that take the flat copy; 2-D and 1-D grids
+DIRECT_CASES = [
+    ((12, 13, 14), (4, 8, 8), 0),
+    ((12, 13, 14), (4, 4, 8), 1),
+    ((12, 13, 14), (8, 8, 4), 2),
+    ((37, 41, 45), (8, 16, 32), 0),
+    ((37, 41, 45), (8, 16, 32), 1),
+    ((130, 66, 516), (8, 16, 32), 0),
+    ((3, 40, 64), (8, 16, 32), 0),
+    ((24, 3, 64), (8, 16, 32), 0),
+    ((24, 40, 3), (8, 16, 32), 0),
+    ((24, 64, 64), (8, 16, 32), 0),
+    ((16, 64, 128), (8, 32, 32), 0),
+    ((41, 53), (16, 16), 0),
+    ((70,), (8,), 0),
+]
+
+
+def _direct_specs(d, ops):
+    """The 13-point star; the 27-point box (corners; 3-D only, the
+    7-point star below); or two RHS, the 13-point star and a 7-point star
+    in reversed order (table-driven)."""
+    if ops == "star13":
+        return (_spec(star_stencil(d, 2), np.linspace(-0.4, 0.5, 4 * d + 1)),)
+    if ops == "box27":
+        offs = BOX27 if d == 3 else star_stencil(d, 1)
+        return (_spec(offs, np.linspace(-0.3, 0.45, len(offs))),)
+    return _apply_ops(d, 2)
+
+
+def _direct_vs_padded(dev, shape, tile, sw, specs, dtype, pipelined, seed=0,
+                      offset=0):
+    """The direct launch on the grids (each starting ``offset`` elements
+    into its allocation, the second 3 more) and the plain version over
+    the launch buffers of the same grids, trimmed."""
+    us, ins, o, ws, _, lo_w, hi_w = _launch(shape, tile, specs, n=len(specs),
+                                            dtype=dtype, device=dev,
+                                            seed=seed)
+    grids = us
+    if offset:
+        grids = []
+        for a, u in enumerate(us):
+            off = offset + 3 * a
+            flat = torch.empty(u.numel() + off, dtype=dtype, device=dev)
+            view = flat[off:].view(u.shape)
+            view.copy_(u)
+            grids.append(view)
+    before = _launches("sweep_apply")
+    got = sweep.sweep_apply(grids, o, ws, lo_w, hi_w, tile, sw, pipelined,
+                            padded=False)
+    assert _launches("sweep_apply") == before + 1
+    want = sweep.sweep_apply_plain(ins, o, ws, lo_w, hi_w, tile, sw)
+    torch.cuda.synchronize()
+    return got, want[tuple(slice(0, n) for n in shape)]
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+@pytest.mark.parametrize("ops", ["star13", "box27", "p2"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", range(len(DIRECT_CASES)))
+def test_direct_apply_equals_plain_over_the_launch_buffer(dev, case, dtype,
+                                                          ops, pipelined):
+    """The kernel reading the caller's grid and zero-filling its window
+    outside it equals the plain version over the padded launch buffer of
+    the same grid, bit for bit, at the grid's own shape."""
+    shape, tile, sw = DIRECT_CASES[case]
+    got, want = _direct_vs_padded(dev, shape, tile, sw,
+                                  _direct_specs(len(shape), ops), dtype,
+                                  pipelined, seed=case)
+    assert got.shape == tuple(shape)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [0, 3, 5, 9, 10])
+def test_direct_apply_of_misaligned_grids_equals_plain(dev, case, dtype,
+                                                       offset):
+    """Grids that start `offset` elements into their allocation (the
+    second 3 more): the flat copy gives way to the piecewise one, whose
+    zero fill around the grid keeps the result exact."""
+    shape, tile, sw = DIRECT_CASES[case]
+    got, want = _direct_vs_padded(dev, shape, tile, sw,
+                                  _direct_specs(len(shape), "p2"), dtype,
+                                  True, offset=offset)
+    assert _same_bits(got, want)
+
+
+@pytest.mark.parametrize("case,flat", [(10, True), (9, True), (3, False)])
+def test_direct_apply_takes_the_flat_copy_on_aligned_grids(dev, case, flat):
+    """f32 grids whose rows are 16-byte multiples keep the flat copy on
+    the direct read (an 8-byte piece, 16-byte blocks, an 8-byte piece a
+    window row of the 13-point star); a ragged row does not."""
+    shape, tile, sw = DIRECT_CASES[case]
+    us, _, o, ws, _, lo_w, hi_w = _launch(shape, tile,
+                                          _direct_specs(3, "star13"),
+                                          device=dev)
+    args = (us, o, ws, lo_w, hi_w, tile, sw)
+    assert sweep.apply_copy16(*args, padded=False) is flat
+    got = sweep.sweep_apply(*args, padded=False)
+    torch.cuda.synchronize()
+    assert _same_bits(got, sweep.sweep_apply_plain(*args, padded=False))
+
+
+@pytest.mark.parametrize("shape,ops", [((37, 41, 45), "star13"),
+                                       ((32, 48, 64), "box27")])
+def test_split_loop_on_the_callers_grid_equals_padded_launches(
+        dev, monkeypatch, shape, ops):
+    """A planned T=4 loop split into depth-1 launches, each reading the
+    last one's output as it is, equals four launches on padded buffers
+    trimmed back, bit for bit; it enqueues four kernels and no buffer."""
+    from repro_torch.plan import PlanCache, Planner, planner
+
+    rec = Planner(cache=PlanCache(persistent=False))
+    monkeypatch.setattr(planner, "_DEFAULT", rec)
+    ((o, w),) = _direct_specs(3, ops)
+    plan = next(p for p in rec.candidates(
+        k=8, shape=shape, offsets=np.asarray(o), time_steps=4,
+        hardware=sweep.hopper_device(dev)) if p.fused_depth == 1)
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        shape).astype(np.float32)).to(dev)
+    before = obs.totals()
+    got = st.stencil_iterate(x, np.asarray(o), w, 4, plan=plan)
+    torch.cuda.synchronize()
+    after = obs.totals()
+    d = {k: after[k] - before[k] for k in (
+        "launches.sweep_apply", "launch_buffers.direct", "device_ops.fill",
+        "device_ops.copy_in", "device_ops.trim")}
+    assert d == {"launches.sweep_apply": 4, "launch_buffers.direct": 4,
+                 "device_ops.fill": 0, "device_ops.copy_in": 0,
+                 "device_ops.trim": 0}
+    oo, ws, _, lo_w, hi_w = st._launch_geometry(((o, w),), None, plan.tile)
+    want = x
+    for _ in range(4):
+        (ins,) = st.embed_inputs([want], [
+            (lo, hi + -(-n // t) * t - n)
+            for lo, hi, n, t in zip(lo_w, hi_w, shape, plan.tile)])
+        want = sweep.sweep_apply([ins], oo, ws, lo_w, hi_w, plan.tile,
+                                 plan.sweep_axis)[tuple(
+                                     slice(0, n) for n in shape)]
+    torch.cuda.synchronize()
+    assert _same_bits(got, want.contiguous())
+
+
+@pytest.mark.parametrize("shape,tile,ops,row_pad,smem,padded_smem", [
+    ((512,) * 3, (8, 32, 32), "star13", 4, 115216, 103696),
+    ((512,) * 3, (8, 32, 32), "box27", 6, 97936, 83248),
+    ((128,) * 3, (128, 2, 32), "star13", 0, 114064, 114064),
+])
+def test_direct_apply_at_the_planned_tiles_keeps_two_ctas_an_sm(
+        dev, shape, tile, ops, row_pad, smem, padded_smem):
+    """At the benchmark's planned tiles the launch on the caller's grid
+    keeps two CTAs an SM.  At 512^3 its shared rows are wider than the
+    padded buffer's (``sweep._row_pad``: room to copy each row's end
+    pieces with their 16-byte blocks); at 128^3 wider rows would cost the
+    second CTA, so the rows keep the padded buffer's bytes and copy their
+    end pieces apart."""
+    specs = _direct_specs(3, ops)
+    oo, ws, _, lo_w, hi_w = st._launch_geometry(specs, None, tile)
+    x = torch.empty(shape, device=dev)
+    plan = sweep._apply_plan([x], oo, ws, lo_w, hi_w, tile, 0, True,
+                             padded=False)
+    assert (plan["geom"][32], plan["smem"]) == (row_pad, smem)
+    assert launch_smem("apply", shape, tile, 0, 4,
+                       list(zip(lo_w, hi_w))) == padded_smem
+    assert sweep.apply_occupancy(torch.float32, 0, smem) == 2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("window_kind", ["ring", "trapezoid"])
 @pytest.mark.parametrize("pipelined", [True, False])
@@ -315,7 +492,6 @@ def test_launch_refused_above_the_shared_memory_limit(dev):
 
 # -- boundary conditions, stage dtypes, int8 frontiers ------------------------
 
-BOX27 = np.array(list(itertools.product((-1, 0, 1), repeat=3)))
 # Per-stage boundary, dtype and quantization configurations (``in_quant``:
 # the input is int8 codes).
 CHAIN_CONFIGS = {

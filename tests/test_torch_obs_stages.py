@@ -6,7 +6,11 @@ on the CPU.
   launches, an explicit-tile fused chain, a periodic wrap and a two-shard
   call; a call inside an open call, and ``trace=``'s self-wrap, count once.
 * Warm and cold: the first call of a signature is cold, a repeat warm.
-* ``device_ops.*`` on each path, a trim counted only when it copies.
+* ``device_ops.*`` on each path, a trim counted only when it copies; a
+  plain application reads the caller's grid (``launch_buffers.direct``):
+  the host builds no launch buffer and trims nothing, and on the CPU the
+  plain kernel's own padded copy counts a fill and a copy-in; every
+  other path keeps its launch buffer.
 * A traced and an untraced call are served by one memo entry.
 * The stage timers allocate nothing that stays, and cost little.
 * ``otherData.t0_unix_ns`` puts a span on ``torch.profiler``'s clock.
@@ -36,6 +40,9 @@ O7 = star_stencil(3, 1)
 W7 = [-1.5] + [0.25] * 6
 OPS = ("fill", "copy_in", "wrap", "kernel", "trim")
 CHILDREN = ("frontend", "decide", "launch_buffers", "sweep_launch", "trim")
+# A plain application's stages: it reads the caller's grid, so its result
+# needs no trim.
+DIRECT = ("frontend", "decide", "launch_buffers", "sweep_launch")
 
 
 @pytest.fixture(autouse=True)
@@ -113,15 +120,20 @@ def _check_tree(stages, d):
 
 
 def test_planned_apply_is_one_call_of_six_stages(memory_planner):
+    """The root and its stages; the launch reads the caller's grid, so
+    the call has no trim, and its fill and copy-in are the plain kernel's
+    padded copy."""
     x = _x()
     tst.stencil_pallas(x, O7, W7, device="cpu")
     stages, d = _traced(lambda: tst.stencil_pallas(x, O7, W7, device="cpu"))
-    assert [s.name for s in stages] == [*CHILDREN, "stencil_call"]
+    assert [s.name for s in stages] == [*DIRECT, "stencil_call"]
     root = _check_tree(stages, d)
     assert all(s.args["parent"] == "stencil_call" for s in stages
                if s is not root)
     assert d["calls"] == 1 and "cold_calls" not in d
     assert d["plan_memo_hit"] == 1
+    assert _ops(d) == dict(fill=1, copy_in=1, wrap=0, kernel=1, trim=0)
+    assert d["launch_buffers.direct"] == 1
 
 
 def test_planned_chain_split_into_launches(memory_planner):
@@ -134,12 +146,90 @@ def test_planned_chain_split_into_launches(memory_planner):
     run()
     stages, d = _traced(run)
     assert [s.name for s in stages] == (
-        ["frontend", "decide"] + ["launch_buffers", "sweep_launch", "trim"] * 4
+        ["frontend", "decide"] + ["launch_buffers", "sweep_launch"] * 4
         + ["stencil_call"])
     _check_tree(stages, d)
-    divides = all(n % t == 0 for n, t in zip(x.shape, plan.tile))
-    assert _ops(d) == dict(fill=4, copy_in=4, wrap=0, kernel=4,
-                           trim=0 if divides else 4)
+    # Each launch reads the last one's output as it is: four kernels, each
+    # with the plain version's padded copy, and no trim, whether or not the
+    # tile divides the grid.
+    assert _ops(d) == dict(fill=4, copy_in=4, wrap=0, kernel=4, trim=0)
+    assert d["launch_buffers.direct"] == 4
+
+
+@pytest.mark.parametrize("shape,tile,p", [
+    ((12, 13, 14), (4, 8, 8), 1), ((37, 41, 45), (8, 16, 32), 1),
+    ((12, 13, 14), (5, 4, 8), 2)])
+def test_ragged_apply_builds_no_buffer_and_trims_nothing(shape, tile, p,
+                                                        monkeypatch):
+    """A tile that does not divide the grid: the kernel's output is the
+    grid's shape already, so the host builds no launch buffer and trims
+    nothing; the fills and copies in are the plain kernel's padded copy
+    of each RHS."""
+    monkeypatch.setattr(tst, "embed_inputs", _no_embed)
+    us = [_x(shape, seed=a) for a in range(p)]
+    stages, d = _traced(lambda: tst.multi_stencil_pallas(
+        us, [O7] * p, [W7] * p, tile=tile, sweep_axis=0, device="cpu"))
+    assert [s.name for s in stages] == [*DIRECT, "stencil_call"]
+    _check_tree(stages, d)
+    assert _ops(d) == dict(fill=p, copy_in=p, wrap=0, kernel=1, trim=0)
+    assert d["launch_buffers.direct"] == 1
+
+
+def _no_embed(*args, **kwargs):
+    raise AssertionError("a plain application built a launch buffer")
+
+
+def _quantized_chain():
+    prog = tir.chain_program([(O7, W7)] * 2, 3, boundary="reflect",
+                             quants=[(0.05, 2), None])
+    return tst.multi_stencil_pallas([_x() * np.float32(0.1)], None, None,
+                                    program=prog, tile=(4, 8, 8),
+                                    device="cpu")
+
+
+@pytest.mark.parametrize("path,direct", [
+    ("apply", 1),
+    ("chain", 0),
+    ("periodic", 0),
+    ("quantized", 0),
+    ("sharded", 0),
+])
+def test_direct_counter_counts_launches_on_the_callers_grid(path, direct,
+                                                           monkeypatch):
+    """``launch_buffers.direct``: one a plain application, none where the
+    launch keeps its buffer (a fused chain, periodic wrap, a quantized
+    stage, column shards).  Only the plain application builds no launch
+    buffer on the host; each path fills one buffer a kernel (the plain
+    application's is its plain kernel's padded copy)."""
+    from repro_torch.parallel import shard_columns
+
+    embeds = []
+    embed = tst.embed_inputs
+    for mod in (tst, shard_columns):
+        monkeypatch.setattr(
+            mod, "embed_inputs",
+            lambda *a, **k: embeds.append(1) or embed(*a, **k))
+    x = _x((16, 16, 16))
+    runs = {
+        "apply": lambda: tst.stencil_pallas(x, O7, W7, tile=(4, 8, 8),
+                                            device="cpu"),
+        "chain": lambda: tst.stencil_iterate(x, O7, W7, 2, tile=(4, 8, 8),
+                                             device="cpu"),
+        "periodic": lambda: tst.multi_stencil_pallas(
+            [x], None, None, tile=(4, 8, 8), device="cpu",
+            program=tir.chain_program([(O7, W7)], 3, boundary="periodic")),
+        "quantized": _quantized_chain,
+        "sharded": lambda: tst.stencil_pallas(
+            x, O7, W7, tile=(4, 8, 16), sweep_axis=0, num_shards=2,
+            shard_axis=1, device="cpu"),
+    }
+    before = obs.totals()
+    runs[path]()
+    d = _delta(before, obs.totals())
+    assert d.get("launch_buffers.direct", 0) == direct
+    assert d["device_ops.kernel"] == (2 if path == "sharded" else 1)
+    assert d["device_ops.fill"] == d["device_ops.kernel"]
+    assert (not embeds) == bool(direct)
 
 
 def test_explicit_tile_fused_chain_and_a_copying_trim():

@@ -74,6 +74,43 @@ def test_single_application_equals_jax(case, pipelined):
     _equal(ref, got)
 
 
+_BOX = np.array([[i, j, k] for i in (-1, 0, 1) for j in (-1, 0, 1)
+                 for k in (-1, 0, 1)])
+# shape, tile, sweep_axis, operator, RHS count, dtype: tiles that do not
+# divide the grid, grids thinner than the halo along the sweep axis and
+# along c1, the 27-point box's corners, two bf16 RHS
+DIRECT_CASES = [
+    ((13, 11, 21), (4, 8, 16), 0, "star", 1, "float32"),
+    ((3, 13, 14), (4, 8, 8), 0, "star", 1, "float32"),
+    ((12, 13, 3), (4, 4, 8), 1, "star", 1, "float32"),
+    ((9, 10, 11), (4, 4, 8), 2, "box", 1, "float32"),
+    ((10, 9, 20), (4, 4, 16), 0, "star", 2, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(DIRECT_CASES)))
+def test_direct_apply_on_ragged_grids_equals_jax(case):
+    """A plain application reads the caller's grid (no launch buffer,
+    ``launch_buffers.direct``) and equals the JAX launch, which pads."""
+    from repro_torch import obs
+
+    shape, tile, sw, op, p, dtype = DIRECT_CASES[case]
+    offs = _BOX if op == "box" else j_star(3, 2)
+    ws = [np.linspace(-0.4 + 0.1 * a, 0.5, len(offs)).tolist()
+          for a in range(p)]
+    xs = _data(shape, seed=case, n=p)
+    ref = jst.multi_stencil_pallas(
+        [jnp.asarray(x, dtype=dtype) for x in xs], [offs] * p, ws,
+        tile=tile, sweep_axis=sw, interpret=True)
+    before = obs.totals()["launch_buffers.direct"]
+    got = tst.multi_stencil_pallas(
+        [torch.from_numpy(x).to(getattr(torch, dtype)) for x in xs],
+        [offs] * p, ws, tile=tile, sweep_axis=sw, device="cpu")
+    assert obs.totals()["launch_buffers.direct"] == before + 1
+    assert got.shape == shape and str(got.dtype) == f"torch.{dtype}"
+    _equal(ref.astype(jnp.float32), got.float())
+
+
 @pytest.mark.parametrize("sweep_axis,tile", [(1, (4, 8, 8)), (2, (8, 8, 4))])
 def test_other_sweep_axes_equal_jax(sweep_axis, tile):
     shape, offs, w, _, _ = CASES["star3d"]
