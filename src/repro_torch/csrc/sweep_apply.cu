@@ -89,6 +89,11 @@ constexpr int kReach = 2;      // sweep offsets read through row offsets
 constexpr int kSpan = kRows + 2 * kReach;  // source rows those can read
 constexpr int kMaxRhs = 8;
 constexpr int kMaxTaps = 192;
+// sweep_apply_launch's return on success: the row path it set up.
+constexpr int kRowsCopy16 = 1;  // = _ROWS_COPY16 in kernels/sweep.py
+constexpr int kRowsSpan = 2;    // = _ROWS_SPAN
+// A failed launch returns -kCudaErrorBase less its CUDA error.
+constexpr int kCudaErrorBase = 16;  // = _CUDA_ERROR_BASE
 
 struct ApplyParams {
   const void* in[kMaxRhs];
@@ -380,8 +385,11 @@ bool rows_copy16(const long long* geom, const void* const* ins, int* head,
 // for the ring's alignment shift (core/tiling.py::apply_smem_bytes).
 // smem_bytes must equal that: -1 means it does not (or exceeds 227 KB),
 // -2 that the taps or RHS exceed the fixed tables (or an offset does not
-// pack), -3 that threads is not kThreads.
-// Otherwise the return is the CUDA error of the launch.
+// pack), -3 that threads is not kThreads, -kCudaErrorBase - e that the
+// launch failed with CUDA error e.  A launch enqueued returns the row path
+// it set up, >= 0: kRowsCopy16 where every window row copies by the flat
+// index (P.copy16), plus kRowsSpan where those rows also copy the blocks
+// around their end pieces (P.span).
 extern "C" int sweep_apply_launch(const long long* geom,
                                   const void* const* ins, void* out,
                                   const int* tap_begin, const int* tap_off,
@@ -462,14 +470,16 @@ extern "C" int sweep_apply_launch(const long long* geom,
   }
   cudaError_t err;
   KernelFn fn = pick(dtype, sweep, smem_bytes, &err);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(ntiles_c0 * P.ntiles_c1));
-  void* args[] = {&P};
-  err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
-                         dim3(kThreads), args, smem_bytes,
-                         static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  if (err == cudaSuccess) {
+    const dim3 grid(static_cast<unsigned>(ntiles_c0 * P.ntiles_c1));
+    void* args[] = {&P};
+    err = cudaLaunchKernel(reinterpret_cast<const void*>(fn), grid,
+                           dim3(kThreads), args, smem_bytes,
+                           static_cast<cudaStream_t>(stream));
+  }
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (err != cudaSuccess) return -kCudaErrorBase - static_cast<int>(err);
+  return (P.copy16 ? kRowsCopy16 : 0) | (P.span ? kRowsSpan : 0);
 }
 
 // 1 where sweep_apply_launch, handed the same geom and ins, copies every

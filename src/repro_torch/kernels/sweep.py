@@ -20,9 +20,11 @@ in ``repro_torch.obs.totals()``: ``device_ops.kernel`` for either
 version (and, for the plain apply on a caller's grid, the fill and the
 copy-in of the padded copy it makes, which the kernel does not),
 ``launches.sweep_apply`` / ``launches.sweep_chain`` for a launch on the
-card alone, and ``launch_table_hit`` / ``launch_table_miss`` for
-the card's launch tables (a miss, or a kernel library's load, makes the
-call cold).
+card alone, ``apply_rows.copy16`` / ``apply_rows.span`` for an apply
+launch whose window rows took the flat copy / also its widened rows (as
+the launcher reports it set them up), and ``launch_table_hit`` /
+``launch_table_miss`` for the card's launch tables (a miss, or a kernel
+library's load, makes the call cold).
 """
 
 from __future__ import annotations
@@ -76,12 +78,20 @@ _MAX_SCHED = 96
 _MAX_BC = 4096
 _MAX_LISTED = 65535  # rows of the class lists (unsigned short bounds)
 _BC_ROW = 8  # int32 per correction term; see _bc_table
+# sweep_apply_launch's return: on success the bits of the row path it set
+# up (kRowsCopy16, kRowsSpan), on a failed launch -16 less the CUDA error
+# (kCudaErrorBase).
+_ROWS_COPY16 = 1
+_ROWS_SPAN = 2
+_CUDA_ERROR_BASE = 16
 
 _SWEEP_LAUNCH = obs.stage("sweep_launch")
 _KERNEL = obs.counter("device_ops.kernel")
 _FILL = obs.counter("device_ops.fill")
 _COPY_IN = obs.counter("device_ops.copy_in")
 _APPLY_LAUNCHES = obs.counter("launches.sweep_apply")
+_ROWS_COPY16_N = obs.counter("apply_rows.copy16")
+_ROWS_SPAN_N = obs.counter("apply_rows.span")
 _CHAIN_LAUNCHES = obs.counter("launches.sweep_chain")
 _TABLE_HIT = obs.counter("launch_table_hit")
 _TABLE_MISS = obs.counter("launch_table_miss")
@@ -177,6 +187,8 @@ def _geom(x, out, lo_w, hi_w, tile, sweep, pipelined, n_in, threads):
 
 
 def _raise_rc(name: str, rc: int) -> None:
+    """Raise on a launcher's error code: the chain's positive CUDA errors,
+    the apply's ``-_CUDA_ERROR_BASE - e``, and the shared -1 to -3."""
     if rc == 0:
         return
     if rc == -1:
@@ -195,7 +207,8 @@ def _raise_rc(name: str, rc: int) -> None:
             f"{name}: the threads per CTA differ from the kernel's "
             "__launch_bounds__"
         )
-    raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+    err = rc if rc > 0 else -_CUDA_ERROR_BASE - rc
+    raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
 
 
 def _c(ctype, vals):
@@ -414,7 +427,8 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     output; or, ``False``, the caller's grids as they are, read with
     zeros outside them, whose result has their shape.  On the card a
     launch's arrays are built once per geometry and kept
-    (:func:`_apply_plan`)."""
+    (:func:`_apply_plan`), and the launcher's return, the row path it set
+    up, is counted (``apply_rows.copy16``, ``apply_rows.span``)."""
     with _SWEEP_LAUNCH:
         ins = list(ins)
         _check(ins, lo_w, hi_w, tile, padded=padded)
@@ -439,9 +453,14 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
             rc = fn(plan["geom"],
                     _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
                     out.data_ptr(), *plan["taps"], plan["smem"], stream)
-        _raise_rc("sweep_apply", rc)
+        if rc < 0:
+            _raise_rc("sweep_apply", rc)
         obs.count(_KERNEL)
         obs.count(_APPLY_LAUNCHES)
+        if rc & _ROWS_COPY16:
+            obs.count(_ROWS_COPY16_N)
+        if rc & _ROWS_SPAN:
+            obs.count(_ROWS_SPAN_N)
         return out
 
 

@@ -14,6 +14,10 @@ Every port call (``stencil_pallas`` / ``stencil_iterate`` /
   caller's grid and builds no buffer (counter ``launch_buffers.direct``);
 * ``sweep_launch``: the ``sweep_apply`` / ``sweep_chain`` wrapper (checks,
   the launch-table key and lookup, the output's allocation, the launch);
+  an apply launch on the card counts the row path its launcher returns
+  (``apply_rows.copy16``: every window row took the flat 16-byte copy;
+  ``apply_rows.span``: those rows were also widened to copy the blocks
+  around their end pieces);
 * ``trim``: the slice of a padded result back to the grid (a sharded
   launch's gather); a launch on the caller's grid has none.
 
@@ -63,7 +67,7 @@ COUNTERS = (
     "device_ops.fill", "device_ops.copy_in", "device_ops.wrap",
     "device_ops.kernel", "device_ops.trim",
     "launches.sweep_apply", "launches.sweep_chain", "launches.conv1d",
-    "launch_buffers.direct",
+    "launch_buffers.direct", "apply_rows.copy16", "apply_rows.span",
 )
 # One slot a counter, then three a stage: its count, its ns, and the ns
 # of the stages closed directly inside it (its self time is the difference).
