@@ -1207,10 +1207,13 @@ def main() -> None:
 
     def plain_versions(fn):
         """``fn()`` with the frontend's kernel wrappers swapped for their
-        plain versions: the same launches at the same planned decision."""
+        plain versions: the same launches at the same planned decision
+        (the call memo emptied first, so that no bound launch serves
+        it)."""
         saved = st.sweep_apply, st.sweep_chain
         st.sweep_apply, st.sweep_chain = (sweep.sweep_apply_plain,
                                           sweep.sweep_chain_plain)
+        st._CALL_MEMO.clear()
         try:
             return fn()
         finally:

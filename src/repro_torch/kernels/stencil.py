@@ -38,6 +38,17 @@ launch ``launch_buffers``, ``sweep_launch`` and, after a padded launch,
 that read the caller's grid (``launch_buffers.direct``), into
 ``repro_torch.obs.totals()`` (:mod:`repro_torch.obs.stages`).
 
+A repeated call whose launches are all plain applications is served by
+the call memo (``_CALL_MEMO``): keyed on every value the launches
+consume, by content (the inputs' shape, dtype, device and strides, the
+offsets' and weights' bytes, the options), it keeps each launch bound
+(:func:`~repro_torch.kernels.sweep.bind_apply`), so such a call goes
+from its key straight to its launches (counters ``call_memo.hit`` and,
+on a signature's first call, ``call_memo.miss``).  ``trace=``,
+``tune=``, ``plan=``, ``program=``, ``stages=``, sharding, an installed
+recorder, a planner with a tuned DB, inputs that are not contiguous
+tensors on the call's device and chain launches take the whole path.
+
 Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
 :class:`~repro_torch.plan.PlanCache` keeps plans across processes)
 decides the tile, the sweep axis, the window kind and how many stages
@@ -53,7 +64,7 @@ The entry points run on the card: ``device=None`` means ``"cuda"``, and
 
 from __future__ import annotations
 
-from functools import lru_cache
+from functools import lru_cache, partial
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -68,7 +79,8 @@ from ..core.tiling import (
     stage_suffix_halos,
 )
 from ..launch.mesh import ModelMesh
-from .sweep import hopper_device, sweep_apply, sweep_chain
+from ..plan import default_planner
+from .sweep import bind_apply, hopper_device, sweep_apply, sweep_chain
 
 # The call's stage timers and device-operation counters (always on;
 # ``repro_torch.obs.stages``).
@@ -81,6 +93,8 @@ _COPY_IN = obs.counter("device_ops.copy_in")
 _WRAP = obs.counter("device_ops.wrap")
 _TRIM_OP = obs.counter("device_ops.trim")
 _DIRECT = obs.counter("launch_buffers.direct")
+_MEMO_HIT = obs.counter("call_memo.hit")
+_MEMO_MISS = obs.counter("call_memo.miss")
 
 __all__ = [
     "stencil_pallas",
@@ -281,7 +295,7 @@ def _apply_geometry(offsets_w, tile):
 
 def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
                   bcs_w=None, dtypes_w=None, window_kind="ring",
-                  quants_w=None, in_quant=None):
+                  quants_w=None, in_quant=None, capture=None):
     """us: tuple of p same-shape tensors.  offsets_w: tuple per tensor of
     (offsets_tuple, weights_tuple).  ``stages_w`` (tuple per stage of
     (offsets_tuple, weights_tuple), single RHS only) fuses the whole
@@ -297,7 +311,11 @@ def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
     ``sweep_apply`` reads ``us`` as they are (``padded=False``): the
     ``launch_buffers`` stage only looks up the launch's geometry, and the
     output comes back at the grid's shape.  A chain launch runs on the
-    padded buffers of :func:`_launch_inputs` and is trimmed back."""
+    padded buffers of :func:`_launch_inputs` and is trimmed back.
+
+    ``capture`` (a list, the call memo's) gains the launch bound for
+    buffers like ``us`` (:func:`~repro_torch.kernels.sweep.bind_apply`),
+    or ``None`` for a chain launch, which the memo does not serve."""
     u0 = us[0]
     d = u0.ndim
     tile = tuple(int(t) for t in tile)
@@ -306,8 +324,14 @@ def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
             offsets, weights, lo_w, hi_w = _apply_geometry(
                 tuple(offsets_w), tile)
             obs.count(_DIRECT)
-        return sweep_apply(us, offsets, weights, lo_w, hi_w, tile, sweep,
-                           pipelined, padded=False)
+        out = sweep_apply(us, offsets, weights, lo_w, hi_w, tile, sweep,
+                          pipelined, padded=False)
+        if capture is not None:
+            capture.append(bind_apply(us, offsets, weights, lo_w, hi_w, tile,
+                                      sweep, pipelined, padded=False))
+        return out
+    if capture is not None:
+        capture.append(None)
     ins, offsets, weights, stages, lo_w, hi_w = _launch_inputs(
         us, offsets_w, tile, stages_w, bcs_w, dtypes_w, quants_w, in_quant
     )
@@ -368,7 +392,7 @@ def _auto_tile(shape, offsets_list, dtype_bytes, n_arrays, dev,
     measured winner, a miss races the top-k candidates on ``dev`` first
     (``repro_torch.plan.tune``), a sharded request on the call's ``mesh``.
     ``num_shards > 1`` plans the worst shard's column slab."""
-    from ..plan import default_planner, resolve_tuner
+    from ..plan import resolve_tuner
 
     hardware = _planning_hardware(dev)
     signature = (shape, tuple(offsets_list), dtype_bytes, n_arrays,
@@ -558,21 +582,143 @@ def multi_stencil_pallas(
                 device=device,
             )
     with obs.call():
-        return _multi_stencil(
-            us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
-            pipelined, plan, time_steps, stages, num_shards, shard_axis,
-            mesh, tune, program, dtypes, window_kind, device,
-        )
+        _FRONTEND.begin()
+        args = (us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
+                pipelined, plan, time_steps, stages, num_shards, shard_axis,
+                mesh, tune, program, dtypes, window_kind, device)
+        if (obs.enabled() or (tune is not None and tune is not False)
+                or plan is not None or program is not None
+                or stages is not None or mesh is not None
+                or shard_axis is not None or (num_shards or 1) > 1):
+            return _multi_stencil(*args)
+        key = _memo_key(us, offsets_list, weights_list, tile, vmem_budget,
+                        sweep_axis, pipelined, time_steps, dtypes,
+                        window_kind, device)
+        if key is None:
+            return _multi_stencil(*args)
+        return _memoized(key, args)
+
+
+# -- the call memo ------------------------------------------------------------
+
+_CALL_MEMO: dict = {}
+_CALL_MEMO_MAX = 256  # call signatures kept (oldest dropped first)
+
+
+class _Memo(NamedTuple):
+    """A call signature's resolved call: the planner it was decided
+    under, the order the call's inputs are launched in, and its launches,
+    each bound for its buffers (:func:`~repro_torch.kernels.sweep.
+    bind_apply`): the first reads the inputs, each later one the last
+    one's output.  ``launches`` is ``None`` where a launch is not a plain
+    application (a fused or conditioned chain): the memo does not serve
+    the signature."""
+
+    planner: object
+    order: tuple
+    launches: tuple | None
+
+
+class _Capture:
+    """What a missed call's launches bind, as :func:`_multi_stencil`
+    makes them."""
+
+    __slots__ = ("order", "launches")
+
+    def __init__(self):
+        self.order = (0,)
+        self.launches = []
+
+
+def _memo_key(us, offsets_list, weights_list, tile, vmem_budget,
+              sweep_axis, pipelined, time_steps, dtypes, window_kind,
+              device):
+    """The call memo's key: every value the call's launches consume, by
+    content — each input's shape, dtype, device and strides, the offsets
+    as int64 bytes with their shape, the weights as the caller's values
+    in float64 bytes (so ``-0.0`` and ``0.0`` never share an entry), the
+    options and ``device`` as passed.  ``None`` where the memo does not
+    serve the call: an input that is not a contiguous tensor on the
+    call's device, offsets that are not integers, or an argument that
+    cannot be part of a key (the call then raises as it always did)."""
+    try:
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        grids = []
+        for u in us:
+            if (type(u) is not torch.Tensor or u.device != dev
+                    or not u.is_contiguous()):
+                return None
+            grids.append((u.shape, u.dtype, u.stride()))
+        taps = []
+        for o in offsets_list:
+            o = np.asarray(o)
+            if o.dtype.kind not in "iu":
+                return None
+            taps.append((o.shape, o.astype(np.int64, copy=False).tobytes()))
+        for w in weights_list:
+            w = np.asarray(w, dtype=np.float64)
+            taps.append((w.shape, w.tobytes()))
+        key = (tuple(grids), dev, tuple(taps), time_steps,
+               None if dtypes is None else tuple(dtypes),
+               None if tile is None else tuple(tile), vmem_budget,
+               sweep_axis, pipelined, window_kind, device)
+        hash(key)
+    except (RuntimeError, TypeError, ValueError):
+        return None
+    return key
+
+
+def _memoized(key, args):
+    """The call ``args`` through the call memo, inside the ``frontend``
+    stage.  A hit launches the entry's bound launches; a miss (or an entry
+    made under another planner) takes the whole path and keeps what it
+    resolved, a cold call if every launch is a plain application.  A
+    planner with a tuned DB, or a signature whose launches the memo does
+    not serve, takes the whole path and counts neither."""
+    planner = default_planner()
+    if planner.tuned_db is not None:
+        return _multi_stencil(*args)
+    entry = _CALL_MEMO.get(key)
+    if entry is not None and entry.planner is planner:
+        if entry.launches is None:
+            return _multi_stencil(*args)
+        obs.count(_MEMO_HIT)
+        _FRONTEND.then(_DECIDE)
+        _DECIDE.end()
+        us = args[0]
+        arrays = [us[i] for i in entry.order]
+        for launch in entry.launches:
+            with _BUFFERS:
+                obs.count(_DIRECT)
+            arrays = [launch(arrays)]
+        return arrays[0]
+    capture = _Capture()
+    out = _multi_stencil(*args, capture=capture)
+    launches = capture.launches
+    if launches and None not in launches:
+        obs.count(_MEMO_MISS)
+        obs.mark_cold()
+        launches = tuple(launches)
+    else:
+        launches = None
+    _CALL_MEMO.pop(key, None)
+    if len(_CALL_MEMO) >= _CALL_MEMO_MAX:
+        _CALL_MEMO.pop(next(iter(_CALL_MEMO)))
+    _CALL_MEMO[key] = _Memo(planner, capture.order, launches)
+    return out
 
 
 def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
                    sweep_axis, pipelined, plan, time_steps, stages,
                    num_shards, shard_axis, mesh, tune, program, dtypes,
-                   window_kind, device):
-    """:func:`multi_stencil_pallas`'s body, inside the call's root stage:
-    the ``frontend`` (inputs, program, lowering), the ``decide`` stage
-    (the launch decision) and the launches."""
-    _FRONTEND.begin()
+                   window_kind, device, capture=None):
+    """:func:`multi_stencil_pallas`'s body, inside the call's root stage
+    and its ``frontend`` stage: the rest of the ``frontend`` (inputs,
+    program, lowering), the ``decide`` stage (the launch decision) and the
+    launches.  ``capture`` (a :class:`_Capture`) gains the input order and
+    each launch, bound (``_stencil_call``'s ``capture``)."""
     if tune and (plan is not None or tile is not None):
         raise ValueError(
             "tune= asks the measured tune loop for the launch decision, but "
@@ -687,7 +833,10 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
                 f"{len(us)} arrays"
             )
         load_order = {name: i for i, name in enumerate(prog.inputs())}
-        us = tuple(us[load_order[name]] for name in lowered.inputs)
+        order = tuple(load_order[name] for name in lowered.inputs)
+        us = tuple(us[i] for i in order)
+        if capture is not None:
+            capture.order = order
         offsets_w = tuple(static_spec(op) for op in lowered.stages)
         chain = None
         bcs = ()
@@ -783,6 +932,8 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
 
         launcher = column_launcher(num_shards=num_shards,
                                    shard_axis=shard_axis, mesh=mesh)
+    elif capture is not None:
+        launcher = partial(_stencil_call, capture=capture.launches)
     else:
         launcher = _stencil_call
     _DECIDE.end()

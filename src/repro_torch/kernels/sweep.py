@@ -24,7 +24,10 @@ card alone, ``apply_rows.copy16`` / ``apply_rows.span`` for an apply
 launch whose window rows took the flat copy / also its widened rows (as
 the launcher reports it set them up), and ``launch_table_hit`` /
 ``launch_table_miss`` for the card's launch tables (a miss, or a kernel
-library's load, makes the call cold).
+library's load, makes the call cold).  :func:`bind_apply` binds one
+apply launch for buffers of one shape, dtype and device, so that the call
+memo of :mod:`repro_torch.kernels.stencil` repeats it with no checks,
+key or table lookup.
 """
 
 from __future__ import annotations
@@ -54,6 +57,7 @@ __all__ = [
     "APPLY_THREADS",
     "apply_copy16",
     "apply_occupancy",
+    "bind_apply",
     "CHAIN_THREADS",
     "chain_occupancy",
     "chain_points",
@@ -446,22 +450,66 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
             raise RuntimeError(f"sweep_apply: unsupported device {dev}")
         plan = _cached_plan(_apply_key(*args, padded),
                             lambda: _apply_plan(*args, padded))
-        out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
-        fn = _entry("sweep_apply")
+        return _launch_apply(_entry("sweep_apply"), plan, ins)
+
+
+def _raw_stream(idx: int) -> int:
+    """The current CUDA stream of card ``idx``, as its ``cudaStream_t``."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(idx)
+    return torch.cuda.current_stream(idx).cuda_stream
+
+
+def _launch_apply(fn, plan, ins) -> torch.Tensor:
+    """One apply launch of ``plan`` over the CUDA buffers ``ins`` on the
+    current stream of their card: the output's allocation, the launch, and
+    its counts (the kernel, the launch and the row path its launcher
+    returned)."""
+    dev = ins[0].device
+    out = torch.empty(plan["out_shape"], dtype=ins[0].dtype, device=dev)
+    args = (plan["geom"], _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
+            out.data_ptr(), *plan["taps"], plan["smem"])
+    if torch.cuda.current_device() == dev.index:
+        rc = fn(*args, _raw_stream(dev.index))
+    else:
         with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = fn(plan["geom"],
-                    _c(ctypes.c_void_p, [x.data_ptr() for x in ins]),
-                    out.data_ptr(), *plan["taps"], plan["smem"], stream)
-        if rc < 0:
-            _raise_rc("sweep_apply", rc)
-        obs.count(_KERNEL)
-        obs.count(_APPLY_LAUNCHES)
-        if rc & _ROWS_COPY16:
-            obs.count(_ROWS_COPY16_N)
-        if rc & _ROWS_SPAN:
-            obs.count(_ROWS_SPAN_N)
-        return out
+            rc = fn(*args, _raw_stream(dev.index))
+    if rc < 0:
+        _raise_rc("sweep_apply", rc)
+    obs.count(_KERNEL)
+    obs.count(_APPLY_LAUNCHES)
+    if rc & _ROWS_COPY16:
+        obs.count(_ROWS_COPY16_N)
+    if rc & _ROWS_SPAN:
+        obs.count(_ROWS_SPAN_N)
+    return out
+
+
+def bind_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+               pipelined=True, *, padded=True):
+    """:func:`sweep_apply` with these arguments, bound for buffers of
+    ``ins``' shape, strides, dtype, device and count: ``launch(bufs)``
+    runs it over ``bufs``, which the caller vouches are such buffers.
+
+    On the card the launch plan is bound (and kept here, whatever
+    ``_PLANS`` drops: it holds no device memory), so a launch only
+    allocates its output and launches on the current stream, within the
+    ``sweep_launch`` stage and with :func:`sweep_apply`'s counts; on the
+    CPU ``launch`` is :func:`sweep_apply` itself, the plain version."""
+    args = (offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
+    ins = list(ins)
+    if ins[0].device.type != "cuda":
+        return lambda bufs: sweep_apply(bufs, *args, padded=padded)
+    plan = (_PLANS.get(_apply_key(ins, *args, padded))
+            or _apply_plan(ins, *args, padded))
+    fn = _entry("sweep_apply")
+
+    def launch(bufs):
+        with _SWEEP_LAUNCH:
+            return _launch_apply(fn, plan, bufs)
+
+    return launch
 
 
 def apply_copy16(ins, offsets, weights, lo_w, hi_w, tile, sweep,

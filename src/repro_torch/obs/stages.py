@@ -4,8 +4,11 @@ Every port call (``stencil_pallas`` / ``stencil_iterate`` /
 ``ir.run_program`` → ``multi_stencil_pallas``) is one root stage,
 ``stencil_call``, with these stages under it:
 
-* ``frontend``: ``_as_tensors``, dtype resolution, the program's build,
-  ``ir.lower`` and the static specs;
+* ``frontend``: the call memo's key and lookup (counters
+  ``call_memo.hit`` / ``call_memo.miss``: a hit goes from there to its
+  bound launches, through an empty ``decide`` and each launch's
+  ``launch_buffers`` and ``sweep_launch``); else ``_as_tensors``, dtype
+  resolution, the program's build, ``ir.lower`` and the static specs;
 * ``decide``: the launch decision (``validate_plan_call`` or
   ``_auto_tile``: signature, tuner, plan memo) up to the resolved tile;
 * ``launch_buffers``: each launch's geometry and, for a chain launch,
@@ -30,13 +33,14 @@ The totals are kept whether or not a recorder is installed, for the
 operator's view (:func:`totals`): per stage the count, nanoseconds and
 self nanoseconds, and the counters of :data:`COUNTERS`, each over all
 calls and split into **warm** and **cold** calls (a call is cold when a
-cache on its path missed during it: the planner's memo, the plan cache,
-the tuned DB, the launch tables, a kernel library's load or build).  The
-hot path takes no lock, opens no profiler range and allocates nothing but
-the int objects it replaces; the totals are one thread's view (calls from
-several threads at once are filed under whichever call is open).  With a
-recorder installed, each stage also becomes one span in it, carrying only
-``call`` (the call's id) and ``parent`` (the enclosing stage's name).
+cache on its path missed during it: the call memo, the planner's memo,
+the plan cache, the tuned DB, the launch tables, a kernel library's load
+or build).  The hot path takes no lock, opens no profiler range and
+allocates nothing but the int objects it replaces; the totals are one
+thread's view (calls from several threads at once are filed under
+whichever call is open).  With a recorder installed, each stage also
+becomes one span in it, carrying only ``call`` (the call's id) and
+``parent`` (the enclosing stage's name).
 """
 
 from __future__ import annotations
@@ -68,6 +72,7 @@ COUNTERS = (
     "device_ops.kernel", "device_ops.trim",
     "launches.sweep_apply", "launches.sweep_chain", "launches.conv1d",
     "launch_buffers.direct", "apply_rows.copy16", "apply_rows.span",
+    "call_memo.hit", "call_memo.miss",
 )
 # One slot a counter, then three a stage: its count, its ns, and the ns
 # of the stages closed directly inside it (its self time is the difference).

@@ -1135,6 +1135,122 @@ def test_planned_launch_equals_the_plain_version(case, dev, monkeypatch):
     assert _same_bits(got.cpu(), want)
 
 
+# -- the call memo ---------------------------------------------------------------
+
+
+@pytest.fixture
+def memo_planner(monkeypatch):
+    """An empty call memo and a memory-only default planner."""
+    from repro_torch.plan import PlanCache, Planner, planner
+
+    monkeypatch.setattr(st, "_CALL_MEMO", {})
+    rec = Planner(cache=PlanCache(persistent=False))
+    monkeypatch.setattr(planner, "_DEFAULT", rec)
+    return rec
+
+
+def _memo_counts():
+    t = obs.totals()
+    return t["call_memo.hit"], t["call_memo.miss"]
+
+
+@pytest.mark.parametrize("shape", [(128, 128, 128), (37, 41, 45)])
+@pytest.mark.parametrize("ops,dtype", [("star13", torch.float32),
+                                       ("box27", torch.float32),
+                                       ("star13", torch.bfloat16)])
+def test_call_memo_hit_equals_the_miss(dev, memo_planner, shape, ops, dtype):
+    """A planned call on the card, repeated: the repeat is the call memo's
+    bound launch (one hit, one apply launch), equal to the miss bit for
+    bit, and both to the plain version at the same plan."""
+    ((o, w),) = _direct_specs(3, ops)
+    o = np.asarray(o)
+    x = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        shape).astype(np.float32)).to(dev, dtype)
+    hits, misses = _memo_counts()
+    miss = st.stencil_pallas(x, o, w)
+    assert _memo_counts() == (hits, misses + 1)
+    before = _launches("sweep_apply")
+    hit = st.stencil_pallas(x, o, w)
+    torch.cuda.synchronize()
+    assert _memo_counts() == (hits + 1, misses + 1)
+    assert _launches("sweep_apply") == before + 1
+    assert _same_bits(hit, miss)
+    (plan,) = memo_planner._by_call.values()
+    want = st.stencil_pallas(x.cpu(), o, w, plan=plan, device="cpu")
+    assert _same_bits(hit.cpu(), want)
+
+
+def test_call_memo_entry_evicted_during_a_side_stream_launch_equals_plain(
+        dev, memo_planner, monkeypatch):
+    """A call memo hit is launched on a side stream held back by a sleep.
+    While it waits, calls of other shapes evict its memo entry (the memo
+    cut to 2 entries) and its launch plan (``_PLANS`` cut to 2), and the
+    default stream fills memory with NaN.  The side launch must still
+    equal the plain version, in each of three rounds: the bound launch
+    keeps its plan (host arrays only), takes the stream current at the
+    call, and reads the caller's grid.  A round counts only if the side
+    launch had not run when the host finished evicting; one that had is
+    taken again with a sleep four times as long."""
+    monkeypatch.setattr(st, "_CALL_MEMO_MAX", 2)
+    monkeypatch.setattr(sweep, "_PLANS_MAX", 2)
+    shape, tile = (37, 41, 45), (8, 16, 32)
+    ((o, w),) = _direct_specs(3, "star13")
+    o = np.asarray(o)
+
+    def grid(n0, seed):
+        return torch.from_numpy(np.random.default_rng(seed).standard_normal(
+            (n0,) + shape[1:]).astype(np.float32)).to(dev)
+
+    def call(u):
+        return st.stencil_pallas(u, o, w, tile=tile, sweep_axis=0)
+
+    x = grid(shape[0], 0)
+    want = st.stencil_pallas(x.cpu(), o, w, tile=tile, sweep_axis=0,
+                             device="cpu")
+    others = [grid(shape[0] + 1 + i, i + 1) for i in range(4)]
+    # Cached memory for the outputs and the fills: a cudaMalloc while the
+    # side launch waits would synchronize the card and let it run early.
+    for u in others:
+        call(u)
+    warm = [torch.empty(shape, device=dev) for _ in range(16)]
+    del warm
+    torch.cuda.synchronize()
+
+    def round_held(cycles):
+        """One round: whether the side launch still waited when the host
+        was done, after checking its result."""
+        st._CALL_MEMO.clear()
+        sweep._PLANS.clear()
+        assert _same_bits(call(x).cpu(), want)  # the miss
+        (key,) = st._CALL_MEMO
+        (plan_key,) = sweep._PLANS
+        torch.cuda.synchronize()
+        hits = _memo_counts()[0]
+        side = torch.cuda.Stream()
+        ran = torch.cuda.Event()
+        with torch.cuda.stream(side):
+            torch.cuda._sleep(cycles)
+            out = call(x)
+            ran.record()
+        assert _memo_counts()[0] == hits + 1
+        for u in others:
+            call(u)
+        assert key not in st._CALL_MEMO and plan_key not in sweep._PLANS
+        junk = [torch.full(shape, float("nan"), device=dev)
+                for _ in range(16)]
+        held = not ran.query()
+        ran.synchronize()
+        assert _same_bits(out.cpu(), want)
+        del junk
+        return held
+
+    for _ in range(3):
+        cycles = 1 << 31  # about 1 s at the SM clock
+        while not round_held(cycles):
+            assert cycles < 1 << 37, "the host never finished in time"
+            cycles *= 4
+
+
 # -- the measured tune loop ------------------------------------------------------
 
 

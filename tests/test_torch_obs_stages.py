@@ -300,18 +300,21 @@ def test_an_exception_closes_the_calls_stages():
 
 
 def test_first_call_is_cold_and_a_repeat_warm(memory_planner):
-    x = _x((12, 13, 16))
+    """The repeat of a planned apply is served by the call memo, which
+    goes from the key to the bound launch without asking the planner."""
+    x = torch.from_numpy(_x((12, 13, 16)))
     before = obs.totals()
     tst.stencil_pallas(x, O7, W7, device="cpu")
     mid = obs.totals()
     cold = _delta(before, mid, "cold")
     assert cold["calls"] == cold["cold_calls"] == 1
-    assert cold["plan_memo_miss"] == 1
+    assert cold["plan_memo_miss"] == cold["call_memo.miss"] == 1
     assert not _delta(before, mid, "warm")
     tst.stencil_pallas(x, O7, W7, device="cpu")
     after = obs.totals()
     warm = _delta(mid, after, "warm")
-    assert warm["calls"] == warm["plan_memo_hit"] == 1
+    assert warm["calls"] == warm["call_memo.hit"] == 1
+    assert "plan_memo_hit" not in warm and "plan_memo_miss" not in warm
     assert warm["frontend.n"] == warm["decide.n"] == 1
     assert not _delta(mid, after, "cold")
     flat = _delta(mid, after)
@@ -321,11 +324,14 @@ def test_first_call_is_cold_and_a_repeat_warm(memory_planner):
 def test_traced_and_untraced_calls_share_one_memo_entry(memory_planner,
                                                         tmp_path):
     """Recording no longer changes the path: a traced call is served by
-    the memo entry an untraced call made, and the other way round."""
+    the memo entry an untraced call made, and the other way round.  (The
+    call memo, which a traced call bypasses, is emptied with the
+    planner's.)"""
     x = _x()
     for first, second in ((None, tmp_path / "a.json"),
                           (tmp_path / "b.json", None)):
         memory_planner._by_call.clear()
+        tst._CALL_MEMO.clear()
         before = obs.totals()
         tst.stencil_pallas(x, O7, W7, device="cpu", trace=first and
                            str(first))
