@@ -1205,19 +1205,33 @@ def main() -> None:
     emit({"phase": "hopper_device", **dataclasses.asdict(hardware),
           "card": card_line})
 
+    def plain_binder(ins, *args, padded=True):
+        """``bind_apply``'s seam, binding the plain apply instead."""
+        return lambda bufs: sweep.sweep_apply_plain(bufs, *args,
+                                                    padded=padded)
+
     def plain_versions(fn):
-        """``fn()`` with the frontend's kernel wrappers swapped for their
-        plain versions: the same launches at the same planned decision
-        (the call memo emptied first, so that no bound launch serves
-        it)."""
-        saved = st.sweep_apply, st.sweep_chain
-        st.sweep_apply, st.sweep_chain = (sweep.sweep_apply_plain,
-                                          sweep.sweep_chain_plain)
+        """``fn()`` with the frontend's kernels swapped for their plain
+        versions at the seams its launches reach them through (a plain
+        application's binder, the padded apply of a sharded launch, the
+        chain's wrapper): the same launches at the same planned decision
+        (the call memo emptied before, so that no bound launch serves
+        it, and after, so that no plain launch serves a later call).  The
+        run must enqueue no apply or chain kernel."""
+        kernels_n = ("launches.sweep_apply", "launches.sweep_chain")
+        saved = st.bind_apply, st.sweep_apply, st.sweep_chain
+        st.bind_apply, st.sweep_apply, st.sweep_chain = (
+            plain_binder, sweep.sweep_apply_plain, sweep.sweep_chain_plain)
         st._CALL_MEMO.clear()
+        before = [obs.totals()[k] for k in kernels_n]
         try:
-            return fn()
+            out = fn()
         finally:
-            st.sweep_apply, st.sweep_chain = saved
+            st.bind_apply, st.sweep_apply, st.sweep_chain = saved
+            st._CALL_MEMO.clear()
+        assert [obs.totals()[k] for k in kernels_n] == before, \
+            "the plain versions' run launched a kernel"
+        return out
 
     def by_name(name):
         return next(ph for phs in summary.values() for ph in phs
@@ -1246,7 +1260,11 @@ def main() -> None:
         assert exact, (name, err)
         del plain
         torch.cuda.empty_cache()
+        reset()
         call_ms = time_ms(call, reps=5)
+        # Its two warm-up calls and five timed ones launched the kernels.
+        timed = counts()
+        assert timed == {k: 7 * n for k, n in launched.items()}, (name, timed)
         dev_one = device_ms(call, reps=3, kernel=f"sweep_{plan.kernel}_kernel")
         dev_call = (dev_one * n_launch if isinstance(dev_one, float)
                     else dev_one)

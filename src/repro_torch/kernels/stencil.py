@@ -1,8 +1,9 @@
 """Host side of the port's stencil launch path.
 
 ``stencil_pallas`` / ``stencil_iterate`` / ``ir.run_program`` →
-:func:`multi_stencil_pallas` → ``ir.lower`` → :func:`_stencil_call` → the
-two sweep kernels of :mod:`repro_torch.kernels.sweep`:
+:func:`multi_stencil_pallas` → :func:`_resolve` (``ir.lower``, the launch
+decision, the launches) → :func:`_run` → the two sweep kernels of
+:mod:`repro_torch.kernels.sweep`:
 
 * ``sweep_apply`` for one zero-fill application over p RHS arrays, handed
   the caller's tensors as they are: the kernel reads each window row
@@ -38,16 +39,13 @@ launch ``launch_buffers``, ``sweep_launch`` and, after a padded launch,
 that read the caller's grid (``launch_buffers.direct``), into
 ``repro_torch.obs.totals()`` (:mod:`repro_torch.obs.stages`).
 
-A repeated call whose launches are all plain applications is served by
-the call memo (``_CALL_MEMO``): keyed on every value the launches
-consume, by content (the inputs' shape, dtype, device and strides, the
-offsets' and weights' bytes, the options), it keeps each launch bound
-(:func:`~repro_torch.kernels.sweep.bind_apply`), so such a call goes
-from its key straight to its launches (counters ``call_memo.hit`` and,
-on a signature's first call, ``call_memo.miss``).  ``trace=``,
-``tune=``, ``plan=``, ``program=``, ``stages=``, sharding, an installed
-recorder, a planner with a tuned DB, inputs that are not contiguous
-tensors on the call's device and chain launches take the whole path.
+A call's launches are built once, in the ``decide`` stage: a plain
+application bound by :func:`~repro_torch.kernels.sweep.bind_apply`, a
+chain launch through :func:`_stencil_call`.  The call memo
+(``_CALL_MEMO``, keyed by :func:`_memo_key` on every value the launches
+consume, by content) keeps a resolved call whose launches are all bound
+plain applications, so its repeat goes from the key straight to the run
+loop (counters ``call_memo.hit`` and ``call_memo.miss``).
 
 Without ``tile=`` the plan compiler (:mod:`repro_torch.plan`, whose
 :class:`~repro_torch.plan.PlanCache` keeps plans across processes)
@@ -64,6 +62,7 @@ The entry points run on the card: ``device=None`` means ``"cuda"``, and
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from functools import lru_cache, partial
 from typing import NamedTuple, Sequence
 
@@ -295,7 +294,7 @@ def _apply_geometry(offsets_w, tile):
 
 def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
                   bcs_w=None, dtypes_w=None, window_kind="ring",
-                  quants_w=None, in_quant=None, capture=None):
+                  quants_w=None, in_quant=None):
     """us: tuple of p same-shape tensors.  offsets_w: tuple per tensor of
     (offsets_tuple, weights_tuple).  ``stages_w`` (tuple per stage of
     (offsets_tuple, weights_tuple), single RHS only) fuses the whole
@@ -307,31 +306,18 @@ def _stencil_call(us, offsets_w, tile, sweep, pipelined, stages_w=None,
     hand-off from an earlier launch).  The result has the last stage's
     dtype.
 
-    Without ``stages_w`` the launch is one zero-fill application, and
-    ``sweep_apply`` reads ``us`` as they are (``padded=False``): the
-    ``launch_buffers`` stage only looks up the launch's geometry, and the
-    output comes back at the grid's shape.  A chain launch runs on the
-    padded buffers of :func:`_launch_inputs` and is trimmed back.
-
-    ``capture`` (a list, the call memo's) gains the launch bound for
-    buffers like ``us`` (:func:`~repro_torch.kernels.sweep.bind_apply`),
-    or ``None`` for a chain launch, which the memo does not serve."""
+    Without ``stages_w`` the launch is one zero-fill application, bound
+    as :func:`_resolve` binds one (:func:`_direct` of ``bind_apply`` over
+    ``us`` as they are, ``padded=False``), and the output comes back at
+    the grid's shape; only a one-shard column launch comes this way.  A
+    chain launch runs on the
+    padded buffers of :func:`_launch_inputs` and is trimmed back."""
     u0 = us[0]
     d = u0.ndim
     tile = tuple(int(t) for t in tile)
     if stages_w is None:
-        with _BUFFERS:
-            offsets, weights, lo_w, hi_w = _apply_geometry(
-                tuple(offsets_w), tile)
-            obs.count(_DIRECT)
-        out = sweep_apply(us, offsets, weights, lo_w, hi_w, tile, sweep,
-                          pipelined, padded=False)
-        if capture is not None:
-            capture.append(bind_apply(us, offsets, weights, lo_w, hi_w, tile,
-                                      sweep, pipelined, padded=False))
-        return out
-    if capture is not None:
-        capture.append(None)
+        return _direct(bind_apply(us, *_apply_geometry(tuple(offsets_w), tile),
+                                  tile, sweep, pipelined, padded=False))(us)
     ins, offsets, weights, stages, lo_w, hi_w = _launch_inputs(
         us, offsets_w, tile, stages_w, bcs_w, dtypes_w, quants_w, in_quant
     )
@@ -586,17 +572,24 @@ def multi_stencil_pallas(
         args = (us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
                 pipelined, plan, time_steps, stages, num_shards, shard_axis,
                 mesh, tune, program, dtypes, window_kind, device)
-        if (obs.enabled() or (tune is not None and tune is not False)
-                or plan is not None or program is not None
-                or stages is not None or mesh is not None
-                or shard_axis is not None or (num_shards or 1) > 1):
-            return _multi_stencil(*args)
-        key = _memo_key(us, offsets_list, weights_list, tile, vmem_budget,
-                        sweep_axis, pipelined, time_steps, dtypes,
-                        window_kind, device)
-        if key is None:
-            return _multi_stencil(*args)
-        return _memoized(key, args)
+        key = _memo_key(*args)
+        entry = None if key is None else _CALL_MEMO.get(key)
+        if (entry is not None and entry.planner is default_planner()
+                and entry.binder is bind_apply):
+            obs.count(_MEMO_HIT)
+            _FRONTEND.then(_DECIDE)
+            _DECIDE.end()
+            return _run(entry, us)
+        call, tensors = _resolve(*args)
+        if key is not None:
+            _CALL_MEMO.pop(key, None)
+            if call.memo:
+                obs.count(_MEMO_MISS)
+                obs.mark_cold()
+                if len(_CALL_MEMO) >= _CALL_MEMO_MAX:
+                    _CALL_MEMO.pop(next(iter(_CALL_MEMO)))
+                _CALL_MEMO[key] = call
+        return _run(call, tensors)
 
 
 # -- the call memo ------------------------------------------------------------
@@ -605,42 +598,27 @@ _CALL_MEMO: dict = {}
 _CALL_MEMO_MAX = 256  # call signatures kept (oldest dropped first)
 
 
-class _Memo(NamedTuple):
-    """A call signature's resolved call: the planner it was decided
-    under, the order the call's inputs are launched in, and its launches,
-    each bound for its buffers (:func:`~repro_torch.kernels.sweep.
-    bind_apply`): the first reads the inputs, each later one the last
-    one's output.  ``launches`` is ``None`` where a launch is not a plain
-    application (a fused or conditioned chain): the memo does not serve
-    the signature."""
-
-    planner: object
-    order: tuple
-    launches: tuple | None
-
-
-class _Capture:
-    """What a missed call's launches bind, as :func:`_multi_stencil`
-    makes them."""
-
-    __slots__ = ("order", "launches")
-
-    def __init__(self):
-        self.order = (0,)
-        self.launches = []
-
-
-def _memo_key(us, offsets_list, weights_list, tile, vmem_budget,
-              sweep_axis, pipelined, time_steps, dtypes, window_kind,
-              device):
-    """The call memo's key: every value the call's launches consume, by
-    content — each input's shape, dtype, device and strides, the offsets
-    as int64 bytes with their shape, the weights as the caller's values
-    in float64 bytes (so ``-0.0`` and ``0.0`` never share an entry), the
-    options and ``device`` as passed.  ``None`` where the memo does not
-    serve the call: an input that is not a contiguous tensor on the
-    call's device, offsets that are not integers, or an argument that
-    cannot be part of a key (the call then raises as it always did)."""
+def _memo_key(us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
+              pipelined, plan, time_steps, stages, num_shards, shard_axis,
+              mesh, tune, program, dtypes, window_kind, device):
+    """The call memo's key for :func:`multi_stencil_pallas`'s arguments:
+    every value the call's launches consume, by content — each input's
+    shape, dtype, device and strides, the offsets as int64 bytes with
+    their shape, the weights as the caller's values in float64 bytes (so
+    ``-0.0`` and ``0.0`` never share an entry), the options and
+    ``device`` as passed.  ``None`` for every call the memo does not
+    serve: an installed recorder, ``tune=``, ``plan=``, ``program=``,
+    ``stages=``, sharding (``mesh=``, ``shard_axis=``, ``num_shards >
+    1``), a default planner with a tuned DB, an input that is not a
+    contiguous tensor on the call's device, offsets that are not
+    integers, or an argument that cannot be part of a key (the call then
+    raises as it always did)."""
+    if (obs.enabled() or (tune is not None and tune is not False)
+            or plan is not None or program is not None
+            or stages is not None or mesh is not None
+            or shard_axis is not None or (num_shards or 1) > 1
+            or default_planner().tuned_db is not None):
+        return None
     try:
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
@@ -670,55 +648,57 @@ def _memo_key(us, offsets_list, weights_list, tile, vmem_budget,
     return key
 
 
-def _memoized(key, args):
-    """The call ``args`` through the call memo, inside the ``frontend``
-    stage.  A hit launches the entry's bound launches; a miss (or an entry
-    made under another planner) takes the whole path and keeps what it
-    resolved, a cold call if every launch is a plain application.  A
-    planner with a tuned DB, or a signature whose launches the memo does
-    not serve, takes the whole path and counts neither."""
-    planner = default_planner()
-    if planner.tuned_db is not None:
-        return _multi_stencil(*args)
-    entry = _CALL_MEMO.get(key)
-    if entry is not None and entry.planner is planner:
-        if entry.launches is None:
-            return _multi_stencil(*args)
-        obs.count(_MEMO_HIT)
-        _FRONTEND.then(_DECIDE)
-        _DECIDE.end()
-        us = args[0]
-        arrays = [us[i] for i in entry.order]
-        for launch in entry.launches:
-            with _BUFFERS:
-                obs.count(_DIRECT)
-            arrays = [launch(arrays)]
-        return arrays[0]
-    capture = _Capture()
-    out = _multi_stencil(*args, capture=capture)
-    launches = capture.launches
-    if launches and None not in launches:
-        obs.count(_MEMO_MISS)
-        obs.mark_cold()
-        launches = tuple(launches)
-    else:
-        launches = None
-    _CALL_MEMO.pop(key, None)
-    if len(_CALL_MEMO) >= _CALL_MEMO_MAX:
-        _CALL_MEMO.pop(next(iter(_CALL_MEMO)))
-    _CALL_MEMO[key] = _Memo(planner, capture.order, launches)
-    return out
+# -- the resolved call and its run loop ---------------------------------------
 
 
-def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
-                   sweep_axis, pipelined, plan, time_steps, stages,
-                   num_shards, shard_axis, mesh, tune, program, dtypes,
-                   window_kind, device, capture=None):
-    """:func:`multi_stencil_pallas`'s body, inside the call's root stage
+@dataclass(eq=False, slots=True)
+class _Resolved:
+    """A call resolved down to its launches, which :func:`_run` runs and
+    the call memo stores: each ``launch(arrays) -> tensor``, the first
+    over the inputs taken in ``order``.  ``memo``: every launch is a plain
+    application bound for its buffers by ``binder`` (the module's
+    :func:`~repro_torch.kernels.sweep.bind_apply` when the call was
+    resolved), so the memo may serve the call while ``planner`` is the
+    default planner and ``binder`` the module's binder.  The rest is what
+    :func:`_launch_span` reports, ``runs`` each launch's ``(n_run, run,
+    run_dts, run_qs)`` (``run`` ``None`` for a single application)."""
+
+    planner: object
+    binder: object
+    order: tuple
+    launches: tuple
+    memo: bool
+    program: object
+    plan: object
+    T: int
+    tile: tuple
+    sweep_axis: int
+    depth: int
+    num_shards: int
+    device: str
+    window_kind: str
+    runs: tuple
+    summary: dict | None = None
+
+
+def _direct(bound):
+    """A bound plain application as a launch that counts its direct read."""
+    def launch(arrays):
+        with _BUFFERS:
+            obs.count(_DIRECT)
+        return bound(arrays)
+
+    return launch
+
+
+def _resolve(us, offsets_list, weights_list, tile, vmem_budget, sweep_axis,
+             pipelined, plan, time_steps, stages, num_shards, shard_axis,
+             mesh, tune, program, dtypes, window_kind, device):
+    """:func:`multi_stencil_pallas`'s call resolved, inside its root stage
     and its ``frontend`` stage: the rest of the ``frontend`` (inputs,
-    program, lowering), the ``decide`` stage (the launch decision) and the
-    launches.  ``capture`` (a :class:`_Capture`) gains the input order and
-    each launch, bound (``_stencil_call``'s ``capture``)."""
+    program, lowering) and the ``decide`` stage (the launch decision and
+    the launches, each built once).  Returns the :class:`_Resolved` call
+    and the inputs as tensors, in the caller's order."""
     if tune and (plan is not None or tile is not None):
         raise ValueError(
             "tune= asks the measured tune loop for the launch decision, but "
@@ -732,7 +712,7 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
         dtypes = tuple(
             _dtype_name(dt) if dt is not None else None for dt in dtypes
         )
-    us = _as_tensors(us, device)
+    tensors = us = _as_tensors(us, device)
     if len({u.shape for u in us}) != 1:
         raise ValueError("RHS arrays must share a shape")
     d = us[0].ndim
@@ -824,6 +804,7 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
             eff = req_dtypes = None
         quants = tuple(lowered.quants or (None,) * T)
         offsets_list = [chain[0][0]]
+        order = (0,)
     else:
         # multi-RHS single application: ``us`` arrives in load order;
         # stage p applies to lowered.inputs[p].
@@ -835,8 +816,6 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
         load_order = {name: i for i, name in enumerate(prog.inputs())}
         order = tuple(load_order[name] for name in lowered.inputs)
         us = tuple(us[i] for i in order)
-        if capture is not None:
-            capture.order = order
         offsets_w = tuple(static_spec(op) for op in lowered.stages)
         chain = None
         bcs = ()
@@ -858,8 +837,7 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
             num_shards = mesh.size
         elif plan is not None:
             num_shards = plan.num_shards
-    depth = None
-    resolved_plan = None
+    resolved_plan = plan
     if plan is not None:
         from ..plan import validate_plan_call
 
@@ -872,19 +850,9 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
             bcs=bcs if chain is not None else None,
             dtypes=req_dtypes if chain is not None else None,
         )
-        if tile is None:
-            tile = plan.tile
-        if sweep_axis is None:
-            sweep_axis = plan.sweep_axis
-        if shard_axis is None:
-            shard_axis = plan.shard_axis
-        if window_kind is None:
-            window_kind = plan.window_kind
         pipelined = pipelined and plan.pipelined
-        depth = plan.fused_depth
-        resolved_plan = plan
     elif tile is None:
-        choice = _auto_tile(
+        resolved_plan = _auto_tile(
             shape, offsets_list, us[0].element_size(), len(us),
             us[0].device, vmem_budget=vmem_budget, time_steps=T,
             stages=[o for o, _ in chain] if chain is not None else None,
@@ -895,23 +863,23 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
             num_shards=int(num_shards or 1),
             mesh=mesh,
         )
-        tile = choice.tile
+    depth = T  # explicit tile: the whole chain in one launch
+    if resolved_plan is not None:
+        if tile is None:
+            tile = resolved_plan.tile
         if sweep_axis is None:
-            sweep_axis = choice.sweep_axis
+            sweep_axis = resolved_plan.sweep_axis
         if shard_axis is None:
-            shard_axis = choice.shard_axis
+            shard_axis = resolved_plan.shard_axis
         if window_kind is None:
-            window_kind = choice.window_kind
-        depth = choice.fused_depth
-        resolved_plan = choice
+            window_kind = resolved_plan.window_kind
+        depth = int(resolved_plan.fused_depth)
     tile = tuple(int(t) for t in tile)
     sweep_axis = 0 if sweep_axis is None else int(sweep_axis)
     window_kind = window_kind or "ring"
     pipelined = bool(pipelined)
-    if depth is None:
-        depth = T  # explicit tile: the whole chain in one launch
     num_shards = 1 if num_shards is None else int(num_shards)
-    sharded = num_shards > 1 or mesh is not None
+    sharded = num_shards > 1 or (mesh is not None and mesh.size > 1)
     if (sharded and shard_axis is not None
             and int(shard_axis) == sweep_axis
             and explicit_shard != explicit_sweep):
@@ -932,100 +900,127 @@ def _multi_stencil(us, offsets_list, weights_list, tile, vmem_budget,
 
         launcher = column_launcher(num_shards=num_shards,
                                    shard_axis=shard_axis, mesh=mesh)
-    elif capture is not None:
-        launcher = partial(_stencil_call, capture=capture.launches)
     else:
         launcher = _stencil_call
-    _DECIDE.end()
-    summary = []  # the program's summary, made once a call (traced only)
+    static = dict(tile=tile, sweep=sweep_axis, pipelined=pipelined)
+    memo = not sharded  # every launch a bound plain application
 
-    def launch_span(n_run, run=None, run_dts=None, run_qs=None):
-        # Only called with recording on: prices this launch's slice of the
-        # plan's whole-chain model (n_run of T stages) and bumps the
-        # counters ``repro_torch.obs.report --check`` reconciles against
-        # the spans.
-        if not summary:
-            summary.append(ir.summarize_program(prog))
-        p = resolved_plan
-        if p is not None:
-            share = n_run / max(T, 1)
-            chain_bytes = (p.per_shard_traffic_bytes * p.num_shards
-                           + p.halo_exchange_bytes)
-            mb = round(chain_bytes * share)
-            mf = round(p.modeled_flops * share)
-            mms = p.modeled_ms * share
-            plan_key = p.request.cache_key()
-        else:
-            mb = mf = 0  # explicit tile: the caller owns the model
-            mms = 0.0
-            plan_key = "<explicit-tile>"
-        # The frontier part of this launch's shared memory under the
-        # resolved window kind (core/tiling.py::sweep_smem_bytes).
-        rsb = 0
-        if run is not None and len(run) > 1:
-            rsb = frontier_smem_bytes(
-                tile, sweep_axis, [halo_from_offsets([o], d) for o, _ in run],
-                window_kind,
-            )
-        quantized = run_qs is not None and any(q is not None for q in run_qs)
-        obs.add("launches")
-        obs.add("modeled_bytes", mb)
-        obs.add("modeled_flops", mf)
-        obs.add("ring_smem_bytes", rsb)
-        if quantized:
-            obs.add("quantized_launches")
-        return obs.span(
-            "kernel_launch",
-            plan_key=plan_key, tile=list(tile), sweep_axis=sweep_axis,
-            fused_depth=int(depth), steps=n_run, num_shards=num_shards,
-            device=us[0].device.type, modeled_bytes=mb, modeled_flops=mf,
-            modeled_ms=mms, program=summary[0],
-            window_kind=window_kind,
-            stage_dtypes=(list(run_dts) if run_dts is not None else None),
-            ring_smem_bytes=rsb,
-            stage_quants=(
-                [list(q) if q is not None else None for q in run_qs]
-                if quantized else None
-            ),
-        )
+    def plain(offsets_w):
+        # A zero-fill application: sharded, or bound on the call's inputs,
+        # the template of every later launch's (its last output has their
+        # shape, dtype, device and strides).
+        if sharded:
+            return partial(launcher, offsets_w=offsets_w, **static)
+        return _direct(bind_apply(us, *_apply_geometry(offsets_w, tile),
+                                  tile, sweep_axis, pipelined, padded=False))
 
+    # Launch i fuses stages [i·depth, (i+1)·depth); a launch with a
+    # boundary, a stage dtype or a quantized stage takes the chain form
+    # even for one stage, and a quantized hand-off reaches the next launch
+    # as int8 codes with its quantization (``in_quant``).
     if chain is None:
-        with launch_span(1) if obs.enabled() else obs.NULL_SPAN:
-            return launcher(us, offsets_w, tile, sweep_axis, pipelined)
-    # The run loop: launch i fuses stages [i·depth, (i+1)·depth); a launch
-    # with a boundary, a stage dtype or a quantized stage takes the chain
-    # form even for one stage, and a quantized hand-off reaches the next
-    # launch as int8 codes with its quantization (``in_quant``).
-    arrays = us
-    pos = 0
-    in_q = None
-    while True:
-        run = chain[pos: pos + int(depth)]
-        run_bcs = bcs[pos: pos + len(run)]
-        run_dts = eff[pos: pos + len(run)] if eff is not None else None
-        run_qs = quants[pos: pos + len(run)]
-        pos += len(run)
-        has_bc = any(bc is not None for bc in run_bcs)
-        span = (launch_span(len(run), run, run_dts, run_qs)
-                if obs.enabled() else obs.NULL_SPAN)
-        with span:
+        launches = [plain(offsets_w)]
+        runs = [(1, None, None, None)]
+    else:
+        launches, runs = [], []
+        in_q = None
+        for pos in range(0, T, depth):
+            run = chain[pos: pos + depth]
+            run_bcs = bcs[pos: pos + len(run)]
+            run_dts = eff[pos: pos + len(run)] if eff is not None else None
+            run_qs = quants[pos: pos + len(run)]
+            has_bc = any(bc is not None for bc in run_bcs)
             if has_bc or run_dts is not None:
-                result = launcher(
-                    arrays, (run[0],), tile, sweep_axis, pipelined,
-                    stages_w=run, bcs_w=run_bcs if has_bc else None,
-                    dtypes_w=run_dts, window_kind=window_kind,
+                launch = partial(
+                    launcher, offsets_w=(run[0],), **static, stages_w=run,
+                    bcs_w=run_bcs if has_bc else None, dtypes_w=run_dts,
+                    window_kind=window_kind,
                     quants_w=(run_qs if any(q is not None for q in run_qs)
                               else None),
                     in_quant=in_q,
                 )
+                memo = False
             elif len(run) == 1:
-                result = launcher(arrays, (run[0],), tile, sweep_axis,
-                                  pipelined)
+                launch = plain((run[0],))
             else:
-                result = launcher(arrays, (run[0],), tile, sweep_axis,
-                                  pipelined, stages_w=run,
-                                  window_kind=window_kind)
-        if pos == len(chain):
-            return result
-        arrays = (result,)
-        in_q = run_qs[-1]
+                launch = partial(launcher, offsets_w=(run[0],), **static,
+                                 stages_w=run, window_kind=window_kind)
+                memo = False
+            launches.append(launch)
+            runs.append((len(run), run, run_dts, run_qs))
+            in_q = run_qs[-1]
+    call = _Resolved(
+        planner=default_planner(), binder=bind_apply, order=order,
+        launches=tuple(launches),
+        memo=memo, program=prog, plan=resolved_plan, T=T, tile=tile,
+        sweep_axis=sweep_axis, depth=depth, num_shards=num_shards,
+        device=us[0].device.type, window_kind=window_kind, runs=tuple(runs),
+    )
+    _DECIDE.end()
+    return call, tensors
+
+
+def _launch_span(call, i):
+    """Launch ``i`` of ``call``'s ``kernel_launch`` span, made with
+    recording on only: prices the launch's slice of the plan's whole-chain
+    model (n_run of T stages) and bumps the counters
+    ``repro_torch.obs.report --check`` reconciles against the spans."""
+    n_run, run, run_dts, run_qs = call.runs[i]
+    if call.summary is None:
+        call.summary = ir.summarize_program(call.program)
+    p = call.plan
+    if p is not None:
+        share = n_run / max(call.T, 1)
+        chain_bytes = (p.per_shard_traffic_bytes * p.num_shards
+                       + p.halo_exchange_bytes)
+        mb = round(chain_bytes * share)
+        mf = round(p.modeled_flops * share)
+        mms = p.modeled_ms * share
+        plan_key = p.request.cache_key()
+    else:
+        mb = mf = 0  # explicit tile: the caller owns the model
+        mms = 0.0
+        plan_key = "<explicit-tile>"
+    # The frontier part of this launch's shared memory under the resolved
+    # window kind (core/tiling.py::sweep_smem_bytes).
+    rsb = 0
+    if run is not None and len(run) > 1:
+        rsb = frontier_smem_bytes(
+            call.tile, call.sweep_axis,
+            [halo_from_offsets([o], len(call.tile)) for o, _ in run],
+            call.window_kind,
+        )
+    quantized = run_qs is not None and any(q is not None for q in run_qs)
+    obs.add("launches")
+    obs.add("modeled_bytes", mb)
+    obs.add("modeled_flops", mf)
+    obs.add("ring_smem_bytes", rsb)
+    if quantized:
+        obs.add("quantized_launches")
+    return obs.span(
+        "kernel_launch",
+        plan_key=plan_key, tile=list(call.tile), sweep_axis=call.sweep_axis,
+        fused_depth=call.depth, steps=n_run, num_shards=call.num_shards,
+        device=call.device, modeled_bytes=mb, modeled_flops=mf,
+        modeled_ms=mms, program=call.summary, window_kind=call.window_kind,
+        stage_dtypes=(list(run_dts) if run_dts is not None else None),
+        ring_smem_bytes=rsb,
+        stage_quants=(
+            [list(q) if q is not None else None for q in run_qs]
+            if quantized else None
+        ),
+    )
+
+
+def _run(call, us):
+    """The run loop: ``call``'s launches in turn, the first over ``us``
+    taken in ``call.order``, each later one over the last one's output,
+    each inside its ``kernel_launch`` span when a recorder is installed."""
+    arrays = [us[i] for i in call.order]
+    for i, launch in enumerate(call.launches):
+        if obs.enabled():
+            with _launch_span(call, i):
+                arrays = [launch(arrays)]
+        else:
+            arrays = [launch(arrays)]
+    return arrays[0]

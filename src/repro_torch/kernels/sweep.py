@@ -420,6 +420,16 @@ def _cached_plan(key, build) -> dict:
     return plan
 
 
+def _apply_table(ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined,
+                 padded) -> dict:
+    """A card apply launch, checked, and its kept plan (a counted
+    launch-table lookup)."""
+    _check(ins, lo_w, hi_w, tile, padded=padded)
+    args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
+    return _cached_plan(_apply_key(*args, padded),
+                        lambda: _apply_plan(*args, padded))
+
+
 def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
                 pipelined=True, *, padded=True):
     """One stencil application over p RHS arrays (kernel 1).
@@ -435,9 +445,12 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     up, is counted (``apply_rows.copy16``, ``apply_rows.span``)."""
     with _SWEEP_LAUNCH:
         ins = list(ins)
-        _check(ins, lo_w, hi_w, tile, padded=padded)
         args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
         dev = ins[0].device
+        if dev.type == "cuda":
+            return _launch_apply(_entry("sweep_apply"),
+                                 _apply_table(*args, padded), ins)
+        _check(ins, lo_w, hi_w, tile, padded=padded)
         if dev.type == "cpu":
             _apply_plan(*args, padded)
             if not padded:
@@ -446,11 +459,7 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
                 obs.count(_COPY_IN, len(ins))
             obs.count(_KERNEL)
             return sweep_apply_plain(*args, padded=padded)
-        if dev.type != "cuda":
-            raise RuntimeError(f"sweep_apply: unsupported device {dev}")
-        plan = _cached_plan(_apply_key(*args, padded),
-                            lambda: _apply_plan(*args, padded))
-        return _launch_apply(_entry("sweep_apply"), plan, ins)
+        raise RuntimeError(f"sweep_apply: unsupported device {dev}")
 
 
 def _raw_stream(idx: int) -> int:
@@ -492,17 +501,16 @@ def bind_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     ``ins``' shape, strides, dtype, device and count: ``launch(bufs)``
     runs it over ``bufs``, which the caller vouches are such buffers.
 
-    On the card the launch plan is bound (and kept here, whatever
-    ``_PLANS`` drops: it holds no device memory), so a launch only
-    allocates its output and launches on the current stream, within the
-    ``sweep_launch`` stage and with :func:`sweep_apply`'s counts; on the
-    CPU ``launch`` is :func:`sweep_apply` itself, the plain version."""
+    On the card the launch plan is bound (:func:`_apply_table`) and kept
+    here, whatever ``_PLANS`` drops: it holds no device memory.  So a
+    launch only allocates its output and launches on the current stream,
+    within the ``sweep_launch`` stage and with :func:`sweep_apply`'s
+    counts; on the CPU ``launch`` is :func:`sweep_apply` itself."""
     args = (offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
     ins = list(ins)
     if ins[0].device.type != "cuda":
         return lambda bufs: sweep_apply(bufs, *args, padded=padded)
-    plan = (_PLANS.get(_apply_key(ins, *args, padded))
-            or _apply_plan(ins, *args, padded))
+    plan = _apply_table(ins, *args, padded)
     fn = _entry("sweep_apply")
 
     def launch(bufs):
@@ -520,12 +528,10 @@ def apply_copy16(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     launcher decides it for these buffers.  Needs the card; launches
     nothing."""
     ins = list(ins)
-    _check(ins, lo_w, hi_w, tile, padded=padded)
-    args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
     if ins[0].device.type != "cuda":
         raise RuntimeError("apply_copy16: the launcher runs on the card only")
-    plan = _cached_plan(_apply_key(*args, padded),
-                        lambda: _apply_plan(*args, padded))
+    plan = _apply_table(ins, offsets, weights, lo_w, hi_w, tile, sweep,
+                        pipelined, padded)
     return bool(_entry("sweep_apply", "copy16")(
         plan["geom"], _c(ctypes.c_void_p, [x.data_ptr() for x in ins])))
 
@@ -914,8 +920,6 @@ def _bc_classes(stages, begin, rows, sweep, n_true) -> list[int]:
                     index.append(q)
     bounds.append(len(index))
     return bounds + index
-
-
 
 
 def _bc_key(bc):

@@ -18,7 +18,14 @@ the kernels' plain versions:
   planner with a tuned DB;
 * 256 entries are kept, the oldest dropped first;
 * a hit opens ``frontend``, ``decide``, ``launch_buffers`` and
-  ``sweep_launch`` once a launch and is warm; a miss is cold.
+  ``sweep_launch`` once a launch and is warm; a miss is cold;
+* the entry a miss stores is the resolved call it ran, and a hit runs
+  the same launch objects; a fused chain stores nothing; the binder
+  ``_resolve`` binds through (``bind_apply``) is called once a launch on
+  a miss and never on a hit, and an entry it bound serves no call once
+  the binder is restored;
+* a one-shard mesh launches the bound plain application, as an
+  unsharded call does.
 """
 
 import numpy as np
@@ -296,3 +303,120 @@ def test_a_hit_opens_each_stage_once_a_launch_and_is_warm(steps, planner):
     assert warm["launch_buffers.n"] == warm["sweep_launch.n"] == steps
     assert warm["launch_buffers.direct"] == warm["device_ops.kernel"] == steps
     assert warm["plan_memo_hit"] == warm["plan_memo_miss"] == 0
+
+
+def test_the_miss_stores_the_call_it_ran_and_a_hit_runs_its_launches(
+        planner, monkeypatch):
+    x = _t()
+    _split_at_depth_1(planner, SHAPE, O7)
+    ran = []
+    run = tst._run
+
+    def watched(call, us):
+        ran.append((call, call.launches))
+        return run(call, us)
+
+    monkeypatch.setattr(tst, "_run", watched)
+    call = lambda: tst.stencil_iterate(x, O7, W7, 4,  # noqa: E731
+                                       device="cpu")
+    miss, counts = _memo(call)
+    assert counts == (0, 1)
+    (entry,) = tst._CALL_MEMO.values()
+    assert ran == [(entry, entry.launches)]
+    assert entry.memo and len(entry.launches) == 4
+    hit, counts = _memo(call)
+    assert counts == (1, 0)
+    assert ran[1][0] is entry and ran[1][1] is ran[0][1]
+    assert _same_bits(hit, miss)
+
+
+def test_a_fused_chain_signature_leaves_the_memo_empty():
+    x = _t()
+    call = lambda: tst.stencil_iterate(x, O7, W7, 2,  # noqa: E731
+                                       tile=(4, 8, 8), device="cpu")
+    first, counts = _memo(call)
+    assert counts == (0, 0) and tst._CALL_MEMO == {}
+    again, counts = _memo(call)
+    assert counts == (0, 0) and tst._CALL_MEMO == {}
+    assert _same_bits(first, again)
+    assert _same_bits(first, _whole_path(call))
+
+
+def _counting_binder(bound, ran):
+    """A binder over ``bind_apply`` whose launches append themselves to
+    ``ran`` when run; each launch it binds is appended to ``bound``."""
+    bind = tst.bind_apply
+
+    def binder(*args, **kw):
+        launch = bind(*args, **kw)
+
+        def counted(bufs):
+            ran.append(counted)
+            return launch(bufs)
+
+        bound.append(counted)
+        return counted
+
+    return binder
+
+
+def test_the_swapped_binder_is_what_a_miss_launches_and_a_hit_not_binds(
+        planner, monkeypatch):
+    x = _t()
+    _split_at_depth_1(planner, SHAPE, O7)
+    bound, ran = [], []
+    monkeypatch.setattr(tst, "bind_apply", _counting_binder(bound, ran))
+    call = lambda: tst.stencil_iterate(x, O7, W7, 4,  # noqa: E731
+                                       device="cpu")
+    miss, counts = _memo(call)
+    assert counts == (0, 1)
+    assert len(bound) == 4 and ran == bound  # each bound launch ran once
+    hit, counts = _memo(call)
+    assert counts == (1, 0)
+    assert len(bound) == 4 and ran == bound + bound  # nothing bound again
+    assert _same_bits(hit, miss)
+    want = _ref([x], [O7], [W7], steps=4)
+    scale = float(want.abs().max())
+    assert float((hit.double() - want).abs().max()) <= 1e-5 * scale
+
+
+def test_a_restored_binder_is_what_the_next_call_launches(monkeypatch):
+    x = _t()
+    bind = tst.bind_apply
+    bound, ran = [], []
+    monkeypatch.setattr(tst, "bind_apply", _counting_binder(bound, ran))
+    call = lambda: tst.stencil_pallas(x, O13, W13,  # noqa: E731
+                                      device="cpu")
+    swapped, counts = _memo(call)
+    assert counts == (0, 1) and len(bound) == len(ran) == 1
+    monkeypatch.setattr(tst, "bind_apply", bind)
+    got, counts = _memo(call)
+    assert counts == (0, 1) and len(ran) == 1  # no swapped launch ran
+    (entry,) = tst._CALL_MEMO.values()
+    assert entry.binder is bind
+    again, counts = _memo(call)
+    assert counts == (1, 0) and len(ran) == 1
+    assert _same_bits(got, swapped) and _same_bits(again, swapped)
+
+
+def test_a_one_shard_mesh_launches_the_bound_plain_application(monkeypatch):
+    from repro_torch.launch.mesh import make_column_mesh
+    from repro_torch.parallel import shard_columns as tsc
+
+    x = _t()
+    want = _whole_path(lambda: tst.stencil_pallas(x, O13, W13,
+                                                  device="cpu"))
+    bound, ran = [], []
+    monkeypatch.setattr(tst, "bind_apply", _counting_binder(bound, ran))
+    mesh = make_column_mesh(1, device="cpu")
+    got, counts = _memo(lambda: tst.stencil_pallas(x, O13, W13, mesh=mesh,
+                                                   device="cpu"))
+    assert counts == (0, 0) and tst._CALL_MEMO == {}
+    assert len(bound) == len(ran) == 1
+    assert _same_bits(got, want)
+    ow = ((tuple(map(tuple, O13.tolist())), tuple(W13)),)
+    direct = tsc.sharded_stencil_call((x,), ow, (4, 8, 8), 0, True,
+                                      num_shards=1)
+    assert len(bound) == len(ran) == 2
+    assert _same_bits(direct, tst._stencil_call((x,), ow, (4, 8, 8), 0,
+                                                True))
