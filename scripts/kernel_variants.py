@@ -3,7 +3,8 @@
 
 Run on an NVIDIA H100 from the root of a checkout:
 
-    python3 scripts/kernel_variants.py [--reps 10] [--rounds 2]
+    python3 scripts/kernel_variants.py [--reps 10] [--rounds 2] \
+        [--phases NAME ...] [--variants NAME ...]
 
 Each variant is a copy of ``src/repro_torch/csrc/conv1d.cu`` or
 ``sweep_apply.cu`` with the text substitutions listed in ``VARIANTS``
@@ -14,15 +15,20 @@ phases (the 512³ f32 and 256³ bf16 p = 2 applications, the sweep-axis-1
 p = 2 application, and Mamba2-2.7B's prefill conv, 4 × 2048 × 5376 bf16)
 and the benchmark's planned applications (the 13-point star and the
 27-point box at 512³ on tile (8, 32, 32), the star at 128³ on tile
-(128, 2, 32)), each variant is held bit for bit against the plain
-version, then its kernel's device time is read with ``torch.profiler``
-(median of ``--reps`` launches), the variants in turns, ``--rounds``
-times.  Each application runs twice: on the padded launch buffer
-(``.padded``, the grid copied into a zero halo beforehand) and on the
-grid as it is (``.direct``, the kernel zero-filling its window outside
-the grid), so a slower kernel shows apart from the buffer's removal.
+(128, 2, 32), and the bf16 13-point star at 512³ on the caller's grid at
+its planned tile (16, 16, 64), ``star13bf16-apply-512``'s one launch),
+each variant is held bit for bit against the plain version, then its
+kernel's device time is read with ``torch.profiler`` (median of
+``--reps`` launches), the variants in turns, ``--rounds`` times.  Each
+application runs twice: on the padded launch buffer (``.padded``, the
+grid copied into a zero halo beforehand; not for the bf16 512³ star) and
+on the grid as it is (``.direct``, the kernel zero-filling its window
+outside the grid), so a slower kernel shows apart from the buffer's
+removal.
 Prints the card, each variant's ptxas register and spill lines, and one
-JSON line per (variant, phase, round).
+JSON line per (variant, phase, round).  ``--phases`` keeps the phases
+whose names start with one of the names given, ``--variants`` the named
+variants of each kernel (``as_built`` always).
 """
 
 from __future__ import annotations
@@ -51,6 +57,15 @@ VARIANTS = {
         "no_copy16": {"P.copy16 = rows_copy16(geom, ins, &P.head, &P.tail);":
                       "rows_copy16(geom, ins, &P.head, &P.tail);\n"
                       "  P.copy16 = 0;"},
+        # every bf16 launch through the element loop, none through the
+        # pair loop
+        "no_pair": {"P.pair = rows_pair(P, dtype, sweep, ins);":
+                    "P.pair = 0;"},
+        # eight sweep rows a thread (both loops; spills in bf16)
+        "rows8": {"constexpr int kRows = 4;": "constexpr int kRows = 8;"},
+        # eight sweep rows a thread in the bf16 pair loop alone
+        "pair_rows8": {"constexpr int kPairRows = 4;":
+                       "constexpr int kPairRows = 8;"},
     },
     "conv1d": {
         "as_built": {},
@@ -86,7 +101,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--phases", nargs="*", default=None)
+    ap.add_argument("--variants", nargs="*", default=None)
     args = ap.parse_args()
+    if args.variants is not None:
+        for variants in VARIANTS.values():
+            for tag in list(variants):
+                if tag != "as_built" and tag not in args.variants:
+                    del variants[tag]
 
     import numpy as np
     import torch
@@ -180,14 +202,17 @@ def main() -> None:
     phases = {}
 
     def applications(name, seed, shape, specs, tile, sweep_axis,
-                     dtype=torch.float32):
-        """Phase ``name`` on the padded launch buffers and on the grids."""
+                     dtype=torch.float32, padded=True):
+        """Phase ``name`` on the padded launch buffers (unless
+        ``padded`` is false) and on the grids."""
         gen.manual_seed(seed)
         u = [torch.randn(shape, generator=gen, device=dev).to(dtype)
              for _ in specs]
         ins, o, w, _, lo, hi = st._launch_inputs(u, specs, tile)
-        phases[f"{name}.padded"] = (
-            "sweep_apply", (ins, o, w, lo, hi, tile, sweep_axis, True), {})
+        if padded:
+            phases[f"{name}.padded"] = (
+                "sweep_apply", (ins, o, w, lo, hi, tile, sweep_axis, True),
+                {})
         phases[f"{name}.direct"] = (
             "sweep_apply", (u, o, w, lo, hi, tile, sweep_axis, True),
             {"padded": False})
@@ -203,6 +228,9 @@ def main() -> None:
     applications("apply_bf16_p2_256", 1, (256,) * 3,
                  (spec(offs13, w13), spec(offs7, w7)), (8, 16, 32), 0,
                  torch.bfloat16)
+    applications("planned_star_bf16_512", 8, (512,) * 3,
+                 (spec(offs13, w13),), (16, 16, 64), 0, torch.bfloat16,
+                 padded=False)
     gen.manual_seed(7)
     u = [torch.randn((512,) * 3, generator=gen, device=dev)
          for _ in range(2)]
@@ -221,9 +249,15 @@ def main() -> None:
     state = torch.zeros((4, 3, 5376), dtype=torch.bfloat16, device=dev)
     phases["conv_prefill"] = ("conv1d", (xbc, cw, cb, 256, state), {})
 
+    if args.phases is not None:
+        phases = {ph: v for ph, v in phases.items()
+                  if any(ph.startswith(p) for p in args.phases)}
     plain = {}
     for ph, (name, a, kw) in phases.items():
-        if ph.endswith(".direct"):  # the padded phase's, trimmed
+        if ph.endswith(".direct") and ph.replace(".direct",
+                                                 ".padded") not in phases:
+            plain[ph] = sweep.sweep_apply_plain(*a, **kw)
+        elif ph.endswith(".direct"):  # the padded phase's, trimmed
             grid = tuple(slice(0, n) for n in a[0][0].shape)
             plain[ph] = plain[ph.replace(".direct", ".padded")][grid]
         elif name == "sweep_apply":

@@ -71,6 +71,25 @@
 //   one, elements are copied one by one, with the sweep rows fastest so
 //   the reads coalesce (load_rows_pitched, sweep_common.cuh).
 //
+// * bf16 launches take a pair loop where they can (P.pair): each thread
+//   owns two neighbouring outputs along c1, (x1, x1 + 1) with x1 even,
+//   over kPairRows = 4 sweep rows, so a warp's item reads and writes 128
+//   contiguous bytes.  A row's taps read 32-bit words of two bf16 from
+//   shared memory, unpacked to f32 by a shift or a mask (exact, as
+//   __bfloat162float is): the centre pair, which the sweep and c0 taps
+//   read at their rows, and the words (x1 - 2, x1 - 1) and (x1 + 2,
+//   x1 + 3) for the c1 taps, so a 13-point row takes 8 words where the
+//   element loop takes 16 loads.  The two sums go out as one 32-bit
+//   store where every output pair sits on a 4-byte word and this one
+//   lies inside the grid, else element by element (the last output of an
+//   odd c1 extent alone).  The launcher sets P.pair (and returns
+//   kRowsPair) where the dtype is bf16, c1 is the minor axis at sweep
+//   axis 0 or 1, the tile's c1 extent is even, every output pair lands on
+//   a 4-byte word of each ring (the inputs' bases, their c0 stride and
+//   the window's lo) and every RHS is a compiled shape; any other launch
+//   runs the element loop.  A word's unused half may lie one element
+//   past a window row, inside the ring's 16 bytes of slack.
+//
 // Bit-exactness: each output's taps are applied RHS by RHS in
 // zip(offsets, weights) order as separate f32 multiplies and adds (built
 // with --fmad=false) into one sum from zero, so the result equals the plain
@@ -87,11 +106,14 @@ constexpr int kThreads = 512;  // = APPLY_THREADS in kernels/sweep.py
 constexpr int kRows = 4;       // sweep rows per thread (register block)
 constexpr int kReach = 2;      // sweep offsets read through row offsets
 constexpr int kSpan = kRows + 2 * kReach;  // source rows those can read
+constexpr int kPairRows = 4;  // sweep rows per thread in the pair loop
+constexpr int kPairSpan = kPairRows + 2 * kReach;
 constexpr int kMaxRhs = 8;
 constexpr int kMaxTaps = 192;
 // sweep_apply_launch's return on success: the row path it set up.
 constexpr int kRowsCopy16 = 1;  // = _ROWS_COPY16 in kernels/sweep.py
 constexpr int kRowsSpan = 2;    // = _ROWS_SPAN
+constexpr int kRowsPair = 4;    // = _ROWS_PAIR
 // A failed launch returns -kCudaErrorBase less its CUDA error.
 constexpr int kCudaErrorBase = 16;  // = _CUDA_ERROR_BASE
 
@@ -125,6 +147,7 @@ struct ApplyParams {
   // within a window plane (c0 * pitch + c1; low 24 bits), then the
   // weight's bits.
   int2 tap[kMaxTaps];
+  int pair;  // bf16 only: two neighbouring c1 outputs a thread
 };
 static_assert(sizeof(ApplyParams) <= 4096, "ApplyParams exceeds 4 KB");
 
@@ -221,6 +244,39 @@ __device__ __forceinline__ void table_add(const ApplyParams& P, int q0,
   }
 }
 
+// Element e (-2 to 3) of a pair row, from the word (2 bf16) that holds
+// it: row points at the pair's first element, on a 4-byte word.  A bf16
+// is the top half of an f32, so the low element is the word shifted up
+// and the high one its top half.
+__device__ __forceinline__ float pair_elem(const __nv_bfloat16* row, int e) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(row + (e & ~1));
+  return __uint_as_float(e & 1 ? w & 0xFFFF0000u : w << 16);
+}
+
+// shape_add for the pair loop: each tap added to the sums of both
+// outputs, acc0 at x1 and acc1 at x1 + 1, in order.
+template <int SH, int SW>
+__device__ __forceinline__ void shape_add_pair(const ApplyParams& P, int q0,
+                                               const __nv_bfloat16* ring,
+                                               int pitch,
+                                               const int (&off)[kPairSpan],
+                                               float (&acc0)[kPairRows],
+                                               float (&acc1)[kPairRows]) {
+#pragma unroll
+  for (int t = 0; t < shape_taps(SH); ++t) {
+    const int os = shape_axis_off(SH, t, role_axis(SW, 0));
+    const int d0 = shape_axis_off(SH, t, role_axis(SW, 1));
+    const int d1 = shape_axis_off(SH, t, role_axis(SW, 2));
+    const float w = __int_as_float(P.tap[q0 + t].y);
+#pragma unroll
+    for (int i = 0; i < kPairRows; ++i) {
+      const __nv_bfloat16* row = ring + off[i + os + kReach] + d0 * pitch;
+      acc0[i] = __fadd_rn(acc0[i], __fmul_rn(w, pair_elem(row, d1)));
+      acc1[i] = __fadd_rn(acc1[i], __fmul_rn(w, pair_elem(row, d1 + 1)));
+    }
+  }
+}
+
 // RHS a's ring in shared memory, offset by the address modulo 16 of its
 // window's first element (`first` elements from the input's element 0;
 // negative where the window starts before the grid).
@@ -233,6 +289,86 @@ __device__ __forceinline__ T* ring_of(const ApplyParams& P,
       static_cast<unsigned long long>(first) * sizeof(T);
   return reinterpret_cast<T*>(smem + a * P.ring_bytes +
                               static_cast<int>(addr & 15));
+}
+
+// One sweep step of the pair loop (P.pair): items of two outputs along
+// c1 over kPairRows sweep rows, the pair index fastest; m0 and the rest
+// as the element loop of sweep_apply_kernel has them.
+template <int SW>
+__device__ __forceinline__ void pair_step(const ApplyParams& P,
+                                          unsigned char* smem,
+                                          long long first, int g_step,
+                                          int base_c0, int base_c1, int m0) {
+  constexpr int kS = role_axis(SW, 0), kC0 = role_axis(SW, 1),
+                kC1 = role_axis(SW, 2);
+  const int t_s = P.tile[kS];
+  const int half = P.tile[kC1] / 2;
+  const int n_items =
+      (t_s + kPairRows - 1) / kPairRows * P.tile[kC0] * half;
+  const FastDiv by_plane = make_div(P.tile[kC0] * half),
+                by_half = make_div(half);
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(P.out);
+  // Whether every output pair sits on a 4-byte word (x1 is even).
+  const bool words = (reinterpret_cast<unsigned long long>(out) & 3) == 0 &&
+                     P.out_stride[kS] % 2 == 0 && P.out_stride[kC0] % 2 == 0;
+  for (int u = threadIdx.x; u < n_items; u += kThreads) {
+    int rem, xp;
+    const int c = divide(u, by_plane, rem);
+    const int x0 = divide(rem, by_half, xp);
+    const int x1 = 2 * xp;
+    if (base_c0 + x0 >= P.out_n[kC0] || base_c1 + x1 >= P.out_n[kC1])
+      continue;  // past the grid: nothing to compute or store
+    const int rows = P.rows;
+    int m = m0 + c * kPairRows;
+    while (m >= rows) m -= rows;
+    const int cross = (x0 + P.lo[kC0]) * P.pitch + x1 + P.lo[kC1];
+    int off[kPairSpan];
+    int slot = m - kReach;
+    while (slot < 0) slot += rows;
+#pragma unroll
+    for (int j = 0; j < kPairSpan; ++j) {
+      off[j] = slot * P.plane + cross;
+      slot = slot + 1 == rows ? 0 : slot + 1;
+    }
+    float acc0[kPairRows], acc1[kPairRows];
+#pragma unroll
+    for (int i = 0; i < kPairRows; ++i) acc0[i] = acc1[i] = 0.0f;
+    for (int a = 0; a < P.p; ++a) {
+      const __nv_bfloat16* ring = ring_of<__nv_bfloat16>(P, smem, a, first);
+      const int q0 = P.tap_begin[a];
+      switch (P.shape[a]) {
+        case kStar2:
+          shape_add_pair<kStar2, SW>(P, q0, ring, P.pitch, off, acc0, acc1);
+          break;
+        case kStar1:
+          shape_add_pair<kStar1, SW>(P, q0, ring, P.pitch, off, acc0, acc1);
+          break;
+        default:  // kBox1: the launcher pairs compiled shapes only
+          shape_add_pair<kBox1, SW>(P, q0, ring, P.pitch, off, acc0, acc1);
+      }
+    }
+    const int r0 = c * kPairRows;
+    __nv_bfloat16* o = out + ((g_step + r0) * P.out_stride[kS] +
+                              (base_c0 + x0) * P.out_stride[kC0] +
+                              base_c1 + x1);
+    const int last = min(t_s, P.out_n[kS] - g_step);
+    const bool both = base_c1 + x1 + 1 < P.out_n[kC1];
+    if (both && words) {
+#pragma unroll
+      for (int i = 0; i < kPairRows; ++i)
+        if (r0 + i < last)
+          *reinterpret_cast<__nv_bfloat162*>(o + i * P.out_stride[kS]) =
+              __floats2bfloat162_rn(acc0[i], acc1[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kPairRows; ++i) {
+        if (r0 + i >= last) continue;
+        __nv_bfloat16* oi = o + i * P.out_stride[kS];
+        oi[0] = __float2bfloat16_rn(acc0[i]);
+        if (both) oi[1] = __float2bfloat16_rn(acc1[i]);
+      }
+    }
+  }
 }
 
 template <typename T, int SW>
@@ -270,6 +406,14 @@ __global__ void __launch_bounds__(512, 2)
                         base_c1);
                 });
     const int g_step = k * t_s;
+    if constexpr (sizeof(T) == 2 && SW < 2) {
+      if (P.pair) {
+        pair_step<SW>(P, smem, first, g_step, base_c0, base_c1, m0);
+        m0 += t_s;
+        if (m0 >= P.rows) m0 -= P.rows;
+        continue;
+      }
+    }
     for (int u = threadIdx.x; u < n_items; u += kThreads) {
       int rem, x1;
       const int c = divide(u, by_plane, rem);
@@ -365,6 +509,32 @@ bool rows_copy16(const long long* geom, const void* const* ins, int* head,
   return copy16;
 }
 
+// Whether a launch takes the pair loop (P.pair): bf16, sweep axis 0 or 1
+// with c1 the minor axis of the inputs and the output, an even tile c1
+// extent, every RHS a compiled shape, and each ring's output pairs on
+// 4-byte words.  A ring starts at its window's first element modulo 16
+// bytes (ring_of), and an output pair's first element sits lo[c1] + x1
+// elements into its window row: with the c0 stride even (so the shared
+// pitch is) and the tile's c1 extent even, that is a word for every tile
+// where it is for the first.  P as sweep_apply_launch fills it.
+bool rows_pair(const ApplyParams& P, int dtype, int sweep,
+               const void* const* ins) {
+  const int c0 = sweep == 0 ? 1 : 0, c1 = 2;
+  if (dtype != 1 || sweep == 2 || P.in_stride[c1] != 1 ||
+      P.out_stride[c1] != 1 || P.in_stride[c0] % 2 || P.tile[c1] % 2)
+    return false;
+  // The first tile's window start, in elements from the input's element 0,
+  // and the pair's column in it.
+  const long long at = -P.org[sweep] * P.in_stride[sweep] -
+                       P.org[c0] * P.in_stride[c0] - P.org[c1] + P.lo[c1];
+  for (int a = 0; a < P.p; ++a)
+    if (P.shape[a] == kShapeTable ||
+        (reinterpret_cast<unsigned long long>(ins[a]) +
+         static_cast<unsigned long long>(at) * 2) % 4 != 0)
+      return false;
+  return true;
+}
+
 }  // namespace
 
 // geom (int64, 3-D after the wrapper's leading-axis padding):
@@ -389,7 +559,8 @@ bool rows_copy16(const long long* geom, const void* const* ins, int* head,
 // launch failed with CUDA error e.  A launch enqueued returns the row path
 // it set up, >= 0: kRowsCopy16 where every window row copies by the flat
 // index (P.copy16), plus kRowsSpan where those rows also copy the blocks
-// around their end pieces (P.span).
+// around their end pieces (P.span), plus kRowsPair where the bf16 kernel
+// computes two neighbouring outputs a thread (P.pair, rows_pair).
 extern "C" int sweep_apply_launch(const long long* geom,
                                   const void* const* ins, void* out,
                                   const int* tap_begin, const int* tap_off,
@@ -468,6 +639,7 @@ extern "C" int sweep_apply_launch(const long long* geom,
       if (same) P.shape[a] = sh;
     }
   }
+  P.pair = rows_pair(P, dtype, sweep, ins);
   cudaError_t err;
   KernelFn fn = pick(dtype, sweep, smem_bytes, &err);
   if (err == cudaSuccess) {
@@ -479,7 +651,8 @@ extern "C" int sweep_apply_launch(const long long* geom,
   }
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess) return -kCudaErrorBase - static_cast<int>(err);
-  return (P.copy16 ? kRowsCopy16 : 0) | (P.span ? kRowsSpan : 0);
+  return (P.copy16 ? kRowsCopy16 : 0) | (P.span ? kRowsSpan : 0) |
+         (P.pair ? kRowsPair : 0);
 }
 
 // 1 where sweep_apply_launch, handed the same geom and ins, copies every

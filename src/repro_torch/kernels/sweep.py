@@ -21,13 +21,14 @@ version (and, for the plain apply on a caller's grid, the fill and the
 copy-in of the padded copy it makes, which the kernel does not),
 ``launches.sweep_apply`` / ``launches.sweep_chain`` for a launch on the
 card alone, ``apply_rows.copy16`` / ``apply_rows.span`` for an apply
-launch whose window rows took the flat copy / also its widened rows (as
-the launcher reports it set them up), and ``launch_table_hit`` /
-``launch_table_miss`` for the card's launch tables (a miss, or a kernel
-library's load, makes the call cold).  :func:`bind_apply` binds one
-apply launch for buffers of one shape, dtype and device, so that the call
-memo of :mod:`repro_torch.kernels.stencil` repeats it with no checks,
-key or table lookup.
+launch whose window rows took the flat copy / also its widened rows, and
+``apply_rows.pair`` for one whose bf16 kernel computed two neighbouring
+outputs a thread (each as the launcher reports it set them up), and
+``launch_table_hit`` / ``launch_table_miss`` for the card's launch tables
+(a miss, or a kernel library's load, makes the call cold).
+:func:`bind_apply` binds one apply launch for buffers of one shape, dtype
+and device, so that the call memo of :mod:`repro_torch.kernels.stencil`
+repeats it with no checks, key or table lookup.
 """
 
 from __future__ import annotations
@@ -83,10 +84,11 @@ _MAX_BC = 4096
 _MAX_LISTED = 65535  # rows of the class lists (unsigned short bounds)
 _BC_ROW = 8  # int32 per correction term; see _bc_table
 # sweep_apply_launch's return: on success the bits of the row path it set
-# up (kRowsCopy16, kRowsSpan), on a failed launch -16 less the CUDA error
-# (kCudaErrorBase).
+# up (kRowsCopy16, kRowsSpan, kRowsPair), on a failed launch -16 less the
+# CUDA error (kCudaErrorBase).
 _ROWS_COPY16 = 1
 _ROWS_SPAN = 2
+_ROWS_PAIR = 4
 _CUDA_ERROR_BASE = 16
 
 _SWEEP_LAUNCH = obs.stage("sweep_launch")
@@ -96,6 +98,7 @@ _COPY_IN = obs.counter("device_ops.copy_in")
 _APPLY_LAUNCHES = obs.counter("launches.sweep_apply")
 _ROWS_COPY16_N = obs.counter("apply_rows.copy16")
 _ROWS_SPAN_N = obs.counter("apply_rows.span")
+_ROWS_PAIR_N = obs.counter("apply_rows.pair")
 _CHAIN_LAUNCHES = obs.counter("launches.sweep_chain")
 _TABLE_HIT = obs.counter("launch_table_hit")
 _TABLE_MISS = obs.counter("launch_table_miss")
@@ -442,7 +445,8 @@ def sweep_apply(ins, offsets, weights, lo_w, hi_w, tile, sweep,
     zeros outside them, whose result has their shape.  On the card a
     launch's arrays are built once per geometry and kept
     (:func:`_apply_plan`), and the launcher's return, the row path it set
-    up, is counted (``apply_rows.copy16``, ``apply_rows.span``)."""
+    up, is counted (``apply_rows.copy16``, ``apply_rows.span``,
+    ``apply_rows.pair``)."""
     with _SWEEP_LAUNCH:
         ins = list(ins)
         args = (ins, offsets, weights, lo_w, hi_w, tile, sweep, pipelined)
@@ -492,6 +496,8 @@ def _launch_apply(fn, plan, ins) -> torch.Tensor:
         obs.count(_ROWS_COPY16_N)
     if rc & _ROWS_SPAN:
         obs.count(_ROWS_SPAN_N)
+    if rc & _ROWS_PAIR:
+        obs.count(_ROWS_PAIR_N)
     return out
 
 

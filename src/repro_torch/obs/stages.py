@@ -20,7 +20,8 @@ Every port call (``stencil_pallas`` / ``stencil_iterate`` /
   an apply launch on the card counts the row path its launcher returns
   (``apply_rows.copy16``: every window row took the flat 16-byte copy;
   ``apply_rows.span``: those rows were also widened to copy the blocks
-  around their end pieces);
+  around their end pieces; ``apply_rows.pair``: the bf16 kernel computed
+  two neighbouring outputs a thread);
 * ``trim``: the slice of a padded result back to the grid (a sharded
   launch's gather); a launch on the caller's grid has none.
 
@@ -72,6 +73,7 @@ COUNTERS = (
     "device_ops.kernel", "device_ops.trim",
     "launches.sweep_apply", "launches.sweep_chain", "launches.conv1d",
     "launch_buffers.direct", "apply_rows.copy16", "apply_rows.span",
+    "apply_rows.pair",
     "call_memo.hit", "call_memo.miss",
 )
 # One slot a counter, then three a stage: its count, its ns, and the ns

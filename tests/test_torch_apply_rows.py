@@ -40,6 +40,7 @@ def _rows_delta(before, after):
 @pytest.mark.parametrize("name,value", [
     ("kRowsCopy16", sweep._ROWS_COPY16),
     ("kRowsSpan", sweep._ROWS_SPAN),
+    ("kRowsPair", sweep._ROWS_PAIR),
     ("kCudaErrorBase", sweep._CUDA_ERROR_BASE),
 ])
 def test_the_launchers_codes_are_the_wrappers(name, value):
